@@ -1,0 +1,721 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py          # from the repo root; one card, nvcc
+
+The main path is the batched neural-SDF SQP-RTI step of BASELINE config 4
+(att quad, N=20, the trained 4x256 NeuralDF of weights/, FoV rows, the
+condensed QP with nz=80, nc=63) through ``sdf_nmpc_tpu_torch``'s public entry
+points.  Phases, in order; any failure raises and exits non-zero before the
+result line:
+
+1. card: ``nvidia-smi`` name and power limit;
+2. build: the four kernels from ``sdf_nmpc_tpu_torch/csrc`` (nvcc, ctypes),
+   with the build time and ptxas' register/spill report;
+3. kernel checks: every kernel against its plain PyTorch version on the
+   inputs one cold step gives it for B=1024 scenarios (the accuracy
+   scenarios tiled and jittered from a seed), and the interior point also on
+   a seeded random QP batch; the interior point per launch and as the whole
+   fused solve (the best-iterate choice and the tail average included);
+4. accuracy: the 32 cold scenarios and the warm / steady replays against the
+   goldens; the CI gate (mean <= 2.5e-4, max <= 2.5e-3, every status OK) is
+   the hard check, the strict <= 1e-3 contract is printed as accuracy_ok;
+5. main path: B=8192, one cold step then 20 chained steady steps ended by
+   one synchronize, with the launch counts set to 0 just before and read
+   just after; solves/s (B * 20 / span), ms per step and peak memory; then
+   the per-step spread of 20 steps synchronized one by one;
+6. where the time goes: the device's busy share of a few profiled chained
+   steady steps (torch.profiler), and its time outside the four kernels;
+7. per-kernel numbers on the inputs a steady step of that run gives each
+   kernel: agreement with the plain version, kernel and plain times from CUDA
+   events, and the least time the card could take for the same work.
+
+The last lines are the ``kernels`` JSON, the card's name and power limit,
+and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 0
+CHECK_B = 1024  # scenarios of the kernel checks (phase 3)
+MAIN_B = 8192  # scenarios of the main path (phase 5), as bench.py
+N_STEADY = 20  # chained steady steps of the main path
+PROFILE_STEPS = 3  # profiled steady steps (phase 6)
+PER_STEP = {"lin_y_sens": 1, "sdf_fused": 1, "condense": 1, "ip_phase": 2}
+KERNELS = {  # name -> (source in the repo, the TPU kernel it replaces)
+    "lin_y_sens": ("sdf_nmpc_tpu_torch/csrc/lin_y_sens.cu",
+                   "sdf_nmpc_tpu/ops/lin_kernels.py:173"),
+    "sdf_fused": ("sdf_nmpc_tpu_torch/csrc/sdf_fused.cu", "sdf_nmpc_tpu/ops/sdf_fused.py:154"),
+    "condense": ("sdf_nmpc_tpu_torch/csrc/condense.cu",
+                 "sdf_nmpc_tpu/ops/condense_kernel.py:38"),
+    "ip_phase": ("sdf_nmpc_tpu_torch/csrc/ip_phase.cu", "sdf_nmpc_tpu/ops/ip_kernel.py:78"),
+}
+# Stated tolerances of kernel against plain version, per output:
+#  lin: A, B at 1e-4 and the y sweep at 2e-4 (tests/test_ops.py); the kernel
+#       runs the algebraic cos/sin-of-atan2 form, the plain version atan2.
+#  sdf: value 2e-4, gradient 2e-3 (tests/test_ops.py); sin(20 z) amplifies
+#       the sum-order rounding of each layer.
+#  condense: 1e-5 (tests/test_qp_kernels.py), plus 1e-5 relative, since E and
+#       G reach magnitudes near 10 where one f32 rounding is ~1e-6.
+#  ip: every launch on the dz, best_dz, best merit and tail sum it leaves,
+#       and the whole fused solve (both launches, the best-iterate choice,
+#       the tail average) on the dz it selects and its KKT residual.  Per
+#       scenario the largest deviation from the plain version is taken, and
+#       a rule bounds the share of scenarios beyond a threshold, the median
+#       and the max.  A flat bound cannot hold every scenario: with the
+#       ratio cap at 1e8 some warm phases are ill-conditioned, near-ties
+#       among the top-k stiff rows flip with one ulp, and near-tied merits
+#       pick another iterate; there the plain f32 version itself lies up to
+#       ~5e-3 from the same computation in f64.  A fault of the kernel
+#       shows in many scenarios, which the share and the median catch.
+#       dz and tail sum: at most 1% beyond 1e-4 (tests/test_qp_kernels.py).
+#       best_dz and the selected dz: 3%, since the plain f32 best iterate
+#       is beyond 1e-4 of f64 on up to 2.5% of scenarios.  The best merit
+#       over 1 + the sum of its terms' magnitudes, and the KKT residual over
+#       1 + its largest term (both are sums that cancel): at most 3% beyond
+#       1e-3, the median below 1e-4 and none beyond 1e-2 (merit) or 2e-2
+#       (KKT).  The plain f32 version's own distance to f64, printed beside
+#       each reading, reaches beyond 1e-3 on 1.7% (merit) and 17% (KKT) of
+#       the scenarios of one workload, with a max of 6.6e-3 and 1.8e-2.
+#  Each rule: (threshold, largest share beyond it, largest median, largest max).
+LIN_TOL = (1e-4, 1e-4, 1e-4, 2e-4, 1e-4, 1e-4)
+SDF_TOL = (2e-4, 2e-3)
+COND_ATOL = COND_RTOL = 1e-5
+IP_RULE = (1e-4, 0.01, 1e-5, 1e-2)
+BEST_RULE = (1e-4, 0.03, 1e-5, 1e-2)
+MERIT_RULE = (1e-3, 0.03, 1e-4, 1e-2)
+KKT_RULE = (1e-3, 0.03, 1e-4, 2e-2)
+# state field -> (index in the phase state, relative?, rule)
+IP_FIELDS = {"dz": (0, False, IP_RULE), "best_dz": (10, False, BEST_RULE),
+             "best_m": (11, True, MERIT_RULE), "dz_tail_sum": (12, False, IP_RULE)}
+# FP32 (non-tensor-core) peak and memory rate per part, at its full power
+# limit (NVIDIA data sheets); the SXM part is the default.
+PEAKS = {"PCIe": (51e12, 2.0e12), "NVL": (60e12, 3.9e12), "SXM": (67e12, 3.35e12)}
+LIN_OPS_PER_POINT = 15_000  # hand count: primal RK4 + y, 14 dual-number sweeps
+
+
+def log(msg: str):
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------- helpers
+
+
+class Capture:
+    """Records the arguments of every kernel-wrapper call while active (the
+    wrappers still run); used to hold each kernel against its plain version
+    on exactly the inputs the main path gives it."""
+
+    def __enter__(self):
+        from sdf_nmpc_tpu_torch.ops import condense_kernel, ip_kernel, lin_kernels, sdf_fused
+        from sdf_nmpc_tpu_torch.solver import sqp
+
+        self.targets = {"lin_y_sens": (lin_kernels, "lin_y_sens"),
+                        "sdf_fused": (sdf_fused, "sdf_value_grad"),
+                        "condense": (condense_kernel, "condense"),
+                        "ip_phase": (ip_kernel, "ip_phase"),
+                        "solve_qp": (sqp, "solve_qp")}
+        self.calls = {k: [] for k in self.targets}  # name -> [(args, kwargs)]
+        self.saved = {}
+        for name, (mod, attr) in self.targets.items():
+            orig = getattr(mod, attr)
+            self.saved[name] = orig
+
+            def rec(*args, _name=name, _orig=orig, **kw):
+                self.calls[_name].append((args, kw))
+                return _orig(*args, **kw)
+
+            setattr(mod, attr, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, attr) in self.targets.items():
+            setattr(mod, attr, self.saved[name])
+        return False
+
+    def args(self, name):
+        return [a for a, _ in self.calls[name]]
+
+
+class PlainPhases:
+    """While active, the fused solve runs the plain IP phase on CUDA tensors
+    (the reference of the whole-solve check) and takes the f32 floors and
+    caps whatever its dtype, so that a f64 solve is the same computation in
+    more precision, as in check_ip."""
+
+    def __enter__(self):
+        from sdf_nmpc_tpu_torch.ops import ip_kernel
+
+        self.saved = ip_kernel.ip_phase, ip_kernel.ip_consts
+        consts = self.saved[1]
+        ip_kernel.ip_phase = ip_kernel.ip_phase_plain
+        ip_kernel.ip_consts = lambda dtype, cap=None: consts(torch.float32, cap)
+        return self
+
+    def __exit__(self, *exc):
+        from sdf_nmpc_tpu_torch.ops import ip_kernel
+
+        ip_kernel.ip_phase, ip_kernel.ip_consts = self.saved
+        return False
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean time of fn() on the card: CUDA events around reps runs, after
+    one warm-up run."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def card_peaks(name: str):
+    for key, v in PEAKS.items():
+        if key in name:
+            return key, v
+    return "SXM", PEAKS["SXM"]
+
+
+def bound(ops: float, bytes_: float, peaks) -> tuple[float, str]:
+    flops, bw = peaks
+    t_ops, t_bytes = ops / flops * 1e3, bytes_ / bw * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def deviation(got, want, scale=None):
+    """Per scenario, the largest |got - want|, over scale (B,) if given; 0
+    where either is not finite (the finite patterns are compared apart)."""
+    g, w = got.double(), want.double()
+    d = (g - w).abs()
+    d = torch.where(torch.isfinite(g) & torch.isfinite(w), d, torch.zeros_like(d))
+    d = d.reshape(d.shape[0], -1).amax(-1)
+    return d if scale is None else d / scale
+
+
+def held(label: str, got, want, ref64, scale, rule) -> bool:
+    """Prints the share / median / max reading of got against want (and of
+    want against its f64 counterpart ref64), both over scale (None:
+    absolute), and says whether rule holds."""
+    thr, share_max, med_max, mx_max = rule
+    d, d64 = deviation(got, want, scale), deviation(want, ref64, scale)
+    share, med, mx = float((d > thr).double().mean()), float(d.median()), float(d.max())
+    kind = "abs" if scale is None else "rel"
+    log(f"  {label} {kind}: median {med:.1e}, max {mx:.1e}, {share:.2%} of {d.shape[0]} above "
+        f"{thr:g}; plain f32 vs f64: median {float(d64.median()):.1e}, max "
+        f"{float(d64.max()):.1e}, {float((d64 > thr).double().mean()):.2%} above {thr:g}")
+    return share <= share_max and med <= med_max and mx <= mx_max
+
+
+def merit_scale(data, dz):
+    """Per scenario, 1 + the sum of the magnitudes of the best merit's terms
+    at dz (0.5 dz'H dz, g'dz, the slack penalties): the size its f32
+    rounding grows with, since the sum cancels."""
+    H, C, g, c0, lh, uh, z1, z2 = (t.double() for t in data[:8])
+    dz = dz.double()
+    a = dz.abs()
+    quad = 0.5 * (a[:, :, None] * H.abs() * a[:, None, :]).sum((1, 2))
+    w = c0 + (C @ dz[..., None])[..., 0]
+    v = (lh - w).clamp(min=0.0) + (w - uh).clamp(min=0.0)
+    return 1.0 + quad + (g * dz).abs().sum(-1) + (z1 * v + 0.5 * z2 * v * v).sum(-1)
+
+
+def kkt_scale(qp, res):
+    """Per scenario, 1 + the largest magnitude of the terms of the projected
+    stationarity H dz + g - C'(lam_l - lam_u) whose difference the KKT
+    residual is."""
+    H, g, C, z1, z2 = (t.double() for t in (qp.H, qp.g, qp.C, qp.z1, qp.z2))
+    d = res.duals
+    lam = (torch.minimum(d.lam_l.double(), z1 + z2 * d.sl.double()).abs()
+           + torch.minimum(d.lam_u.double(), z1 + z2 * d.su.double()).abs())
+    terms = ((H.abs() @ res.dz.double().abs()[..., None])[..., 0] + g.abs()
+             + (C.abs().transpose(1, 2) @ lam[..., None])[..., 0])
+    return 1.0 + terms.amax(-1)
+
+
+def same_finite(name: str, got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(torch.isfinite(g), torch.isfinite(w)):
+            raise AssertionError(f"{name}: output {i} is not finite where the plain version's "
+                                 "is, or the reverse")
+
+
+# ------------------------------------------------- per-kernel comparisons
+
+
+def check_lin(args) -> float:
+    from sdf_nmpc_tpu_torch.ops import lin_kernels
+
+    got = lin_kernels.lin_y_sens(*args)
+    want = lin_kernels.lin_y_sens_plain(args[0], *args[2:])
+    errs = [max_abs(g, w) for g, w in zip(got, want)]
+    log(f"  lin_y_sens  max err per output {['%.2e' % e for e in errs]} tol {LIN_TOL}")
+    bad = [i for i, (e, t) in enumerate(zip(errs, LIN_TOL)) if not e <= t]
+    if bad:
+        raise AssertionError(f"lin_y_sens disagrees with its plain version on outputs {bad}")
+    return max(errs)
+
+
+def check_sdf(args) -> float:
+    from sdf_nmpc_tpu_torch.ops import sdf_fused
+
+    got = sdf_fused.sdf_value_grad(*args)
+    want = sdf_fused.sdf_value_grad_plain(*args)
+    errs = [max_abs(g, w) for g, w in zip(got, want)]
+    log(f"  sdf_fused   value err {errs[0]:.2e} (tol {SDF_TOL[0]}), "
+        f"grad err {errs[1]:.2e} (tol {SDF_TOL[1]})")
+    if not (errs[0] <= SDF_TOL[0] and errs[1] <= SDF_TOL[1]):
+        raise AssertionError("sdf_value_grad disagrees with its plain version")
+    return max(errs)
+
+
+def check_condense(args) -> float:
+    from sdf_nmpc_tpu_torch.ops import condense_kernel
+
+    got = condense_kernel.condense(*args)
+    want = condense_kernel.condense_plain(*args)
+    errs, excess = [], []
+    for g, w in zip(got, want):
+        d = (g.double() - w.double()).abs()
+        errs.append(float(d.max()))
+        excess.append(float((d - COND_RTOL * w.double().abs()).max()))
+    log(f"  condense    max err per output {['%.2e' % e for e in errs]} "
+        f"(tol {COND_ATOL} + {COND_RTOL} |plain|)")
+    if not max(excess) <= COND_ATOL:
+        raise AssertionError("condense disagrees with its plain version")
+    return max(errs)
+
+
+def check_ip(args, label: str) -> float:
+    from sdf_nmpc_tpu_torch.ops import ip_kernel
+
+    data, state, k_s, n_iters, it0, consts = args[:6]
+    n_tail = args[6] if len(args) > 6 else 0
+    rest = (k_s, n_iters, it0, consts, n_tail)
+    got = ip_kernel.ip_phase(data, state, *rest)
+    want = ip_kernel.ip_phase_plain(data, state, *rest)
+    ref64 = ip_kernel.ip_phase_plain(tuple(t.double() for t in data),
+                                     tuple(t.double() for t in state), *rest)
+    same_finite(f"ip_phase {label}", got, want)
+    failed = []
+    for name, (i, relative, rule) in IP_FIELDS.items():
+        scale = merit_scale(data, want[10]) if relative else None  # at the plain best_dz
+        if not held(f"ip_phase    {label} (k_s={k_s}, {n_iters} iters) {name}",
+                    got[i], want[i], ref64[i], scale, rule):
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"ip_phase {label} disagrees with its plain version on {failed}")
+    return max_abs(got[0], want[0])
+
+
+def check_fused_solve(call, label: str) -> float:
+    """The whole fused solve, both kernel launches then the best-iterate
+    choice, the tail average and the KKT residual, against the same solve
+    with the plain phases, on one captured QP."""
+    from sdf_nmpc_tpu_torch.solver import QpData, solve_qp
+
+    (qp,), kw = call
+    got = solve_qp(qp, **kw)
+    with PlainPhases():
+        want = solve_qp(qp, **kw)
+        ref64 = solve_qp(QpData(*[t.double() for t in qp]), **kw)
+    same_finite(f"fused solve {label}", got[:3], want[:3])
+    ok_dz = held(f"fused solve {label} selected dz", got.dz, want.dz, ref64.dz, None, BEST_RULE)
+    ok_kkt = held(f"fused solve {label} kkt", got.kkt_residual, want.kkt_residual,
+                  ref64.kkt_residual, kkt_scale(qp, want), KKT_RULE)
+    if not (ok_dz and ok_kkt):
+        raise AssertionError(f"fused solve {label} disagrees with the plain phases")
+    return max_abs(got.dz, want.dz)
+
+
+def check_all(cap: Capture, label: str) -> dict:
+    errs = {
+        "lin_y_sens": max(check_lin(a) for a in cap.args("lin_y_sens")),
+        "sdf_fused": max(check_sdf(a) for a in cap.args("sdf_fused")),
+        "condense": max(check_condense(a) for a in cap.args("condense")),
+    }
+    errs["ip_phase"] = max([check_ip(a, f"{label} launch {i}")
+                            for i, a in enumerate(cap.args("ip_phase"))]
+                           + [check_fused_solve(c, label) for c in cap.calls["solve_qp"]])
+    torch.cuda.synchronize()
+    return errs
+
+
+# --------------------------------------------------------------- workloads
+
+
+def tiled_inputs(ocp, cfg, layout, lat, B, seed, device):
+    """B scenarios: the 32 accuracy scenarios tiled, with seeded jitter on
+    the start state and the latents (phase 3)."""
+    from sdf_nmpc_tpu_torch.solver import SolveInputs
+    from sdf_nmpc_tpu_torch.utils import accuracy
+
+    scen = accuracy.build_scenarios(cfg, ocp, layout, lat)
+    idx = np.arange(B) % len(scen)
+    rng = np.random.default_rng(seed)
+    x0 = np.stack([scen[i][0] for i in idx])
+    x0[:, :3] += rng.normal(size=(B, 3)) * 0.05
+    x0[:, 7:10] += rng.normal(size=(B, 3)) * 0.05
+    p = np.stack([scen[i][1] for i in idx])
+    p[..., layout.latent_start:] += rng.normal(size=(B, 1, layout.size_latent)) * 0.02
+    yr = np.stack([scen[i][2] for i in idx])
+    W = np.stack([scen[i][3] for i in idx])
+    T = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    N = ocp.N
+    return SolveInputs(x0=T(x0), yref=T(np.repeat(yr[:, None], N, 1)),
+                       W=T(np.repeat(W[:, None], N, 1)), yrefN=T(yr[:, :ocp.nyN]),
+                       WN=T(W[:, :ocp.nyN]), p=T(p))
+
+
+def bench_inputs(ocp, cfg, layout, B, seed, device):
+    """bench.py's workload: random starts near the origin, the trained
+    latents in turn, goal (2, 0, 0) with the constrained weights."""
+    from sdf_nmpc_tpu_torch.nn.weights import load_prod_latents
+    from sdf_nmpc_tpu_torch.ref_gen import Ref
+    from sdf_nmpc_tpu_torch.solver import SolveInputs
+
+    lat = load_prod_latents()
+    rng = np.random.default_rng(seed)
+    N = ocp.N
+    x0 = np.zeros((B, ocp.nx))
+    x0[:, 3] = 1.0
+    x0[:, :3] = rng.normal(size=(B, 3)) * 0.3
+    p = np.zeros((B, N + 1, layout.np_total))
+    layout.set_flag(p, 1.0)
+    layout.set_camera(p, np.zeros(3), np.eye(3))
+    layout.set_q_d(p, [1, 0, 0, 0])
+    p[..., layout.latent_start:] = lat[np.arange(B) % lat.shape[0]][:, None, :]
+    ref = Ref(cfg).use_constrained_weights(True)
+    ref.p = np.array([2.0, 0.0, 0.0])
+    yr, W = ocp.pack_ref(ref)
+    T = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    return SolveInputs(x0=T(x0), yref=T(np.tile(yr, (B, N, 1))), W=T(np.tile(W, (B, N, 1))),
+                       yrefN=T(np.tile(yr[:ocp.nyN], (B, 1))),
+                       WN=T(np.tile(W[:ocp.nyN], (B, 1))), p=T(p))
+
+
+def random_qp(B, nz, nc, seed, device):
+    """A seeded soft-constrained QP batch built as in tests/test_qp_kernels.py."""
+    from sdf_nmpc_tpu_torch.solver import QpData
+
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(B, nz, nz))
+    H = np.einsum("bij,bkj->bik", A, A) + 10 * np.eye(nz)
+    T = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    return QpData(H=T(H), g=T(rng.normal(size=(B, nz)) * 2), C=T(rng.normal(size=(B, nc, nz))),
+                  c0=T(rng.normal(size=(B, nc))), lh=T(np.full((B, nc), -0.1)),
+                  uh=T(np.full((B, nc), 0.1)), z1=T(np.full((B, nc), 1e3)),
+                  z2=T(np.full((B, nc), 1e4)), lb=T(np.full((B, nz), -0.7)),
+                  ub=T(np.full((B, nz), 0.7)))
+
+
+# ------------------------------------------------------- bytes and operations
+
+
+def lin_cost(args):
+    _, layout, X, U, dt, P, yref = args
+    M, nx = X.shape
+    nu, ny = U.shape[1], yref.shape[1]
+    read = nbytes(X, U, dt, yref) + M * len(layout.q_d) * 4
+    written = M * (nx + nx * nx + nx * nu + ny + ny * nx + ny * nu) * 4
+    return LIN_OPS_PER_POINT * M, read + written
+
+
+def sdf_cost(args):
+    """Multiply-adds of the primal row and the three tangent rows; a tangent
+    row's latent columns are zero (the latent does not move with position),
+    so its layers 1 and 3 take only the nemb embedding inputs."""
+    packed, pos, latent = args
+    P = pos.shape[0]
+    nemb, L, (s1, s2, s3, s4) = packed["nemb"], packed["L"], packed["sizes"]
+
+    def row_macs(n_in):
+        return n_in * s1 + s1 * s2 + (s2 + n_in) * s3 + s3 * s4 + s4
+
+    macs = row_macs(nemb + L) + 3 * row_macs(nemb)
+    weights = sum(packed[f"{k}{i}"].numel() * 4 for k in "Wb" for i in range(1, 6))
+    read = P * (nemb + 3 * nemb + L) * 4 + weights  # embedding rows, tangents, latents
+    return 2 * P * macs, read + P * 4 * 4
+
+
+def condense_cost(args):
+    """E_k is zero beyond its first k*nu columns, so stage k's products
+    A_k E_k, Jyx_k E_k and Jhx_k E_k take k*nu columns."""
+    A, Bm, d, e0, Jyx, Jyu, res, Jhx, Jhu, h = args
+    B, N, nx = d.shape
+    nu, ny, nh = Bm.shape[-1], Jyx.shape[2], Jhx.shape[2]
+    nz = N * nu
+    written = B * (N * (nx + nx * nz + ny * nz + ny + nh * nz + nh) + nx + nx * nz) * 4
+    cols = nu * N * (N - 1) // 2  # sum over the stages of k * nu
+    ops = B * 2 * nx * (nx + ny + nh) * (cols + N)  # + N: the e_k products
+    return ops, nbytes(*args) + written
+
+
+def ip_ops_per_iter(nz, nc, ks):
+    """Operations of one interior-point iteration for one scenario."""
+    tri = nz * (nz + 1) // 2
+    newton = nc * nz + tri * (2 * nc + 1)  # eta C once, then H + C' (eta C), lower triangle
+    chol = nz ** 3 // 3
+    solves = (ks + 2) * 2 * nz * nz  # predictor (ks + 1 rhs) and corrector
+    matvec = 2 * nz * nz + 12 * nc * nz  # H dz and the C / C' products
+    # T = Cs Xs' (lower triangle) and the Woodbury correction of both solves
+    wood = ks * (ks + 1) // 2 * 2 * nz + 2 * 4 * ks * nz if ks else 0
+    return newton + chol + solves + matvec + wood + 100 * (nz + nc)
+
+
+def ip_cost(args):
+    data, state, k_s, n_iters = args[:4]
+    B, nz = data[2].shape
+    nc = data[3].shape[1]
+    return B * n_iters * ip_ops_per_iter(nz, nc, k_s), nbytes(*data) + 2 * nbytes(*state)
+
+
+# ------------------------------------------------------------------ phases
+
+
+def phase_card():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device is available")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    return card
+
+
+def phase_build():
+    from sdf_nmpc_tpu_torch.ops import _lib
+
+    t0 = time.perf_counter()
+    _lib.library()
+    info = _lib.build_info
+    log(f"build: {time.perf_counter() - t0:.1f} s ({info['path']})")
+    for line in info["log"].splitlines():
+        if line.startswith("==") or "registers" in line or "spill" in line or "error" in line:
+            log("  " + line.strip())
+
+
+def phase_kernel_checks(dev):
+    from sdf_nmpc_tpu_torch.solver import init_state, make_rti_step, solve_qp
+    from sdf_nmpc_tpu_torch.utils import accuracy
+
+    cfg, ocp, layout, lat = accuracy.build_setup(device=dev)
+    inputs = tiled_inputs(ocp, cfg, layout, lat, CHECK_B, SEED, dev)
+    log(f"kernel checks: one cold step, B={CHECK_B} jittered accuracy scenarios")
+    with Capture() as cap:
+        make_rti_step(ocp, cfg, budget="cold", with_evals=False)(
+            init_state(ocp, inputs.x0), inputs)
+    check_all(cap, "accuracy scenarios")
+    # tests/test_qp_kernels.py's schedule (8 warm + 4 stiff) and its default
+    # ratio cap (0.1 / eps).  The main path's 1e8 cap is held on the main
+    # path's own QPs above and in phase 7; on these random QPs most of the
+    # 63 rows are near-active, and under that cap the plain f32 phase itself
+    # strays from f64 by far more than 1e-4 on many scenarios, which leaves
+    # nothing for the kernel to be held to.
+    log(f"kernel checks: seeded random QP batch, B={CHECK_B}, nz=80, nc=63, 8 + 4 iterations")
+    qp, kw = random_qp(CHECK_B, 80, 63, SEED, dev), dict(iters=12, stiff_iters=4, k_stiff=8)
+    with Capture() as cap:
+        solve_qp(qp, **kw)
+    for i, a in enumerate(cap.args("ip_phase")):
+        check_ip(a, f"random QP launch {i}")
+    check_fused_solve(((qp,), kw), "random QP")
+
+
+def phase_accuracy(dev):
+    from sdf_nmpc_tpu_torch.utils import accuracy as acc
+
+    cold = acc.check_accuracy(device=dev)
+    warm = acc.check_warm_accuracy(device=dev, budget="warm")
+    steady = acc.check_warm_accuracy(device=dev, budget="steady")
+    g = acc.replay_gates(warm, steady)
+    rows = (("cold", cold["u0_mean_err"], cold["u0_max_err"], cold["n_ok"], cold["n_scen"]),
+            ("warm", g["warm_mean"], g["warm_max"], warm["n_ok"], warm["n_solves"]),
+            ("steady", g["steady_mean"], g["steady_max"], steady["n_ok"], steady["n_solves"]))
+    for name, mean, mx, n_ok, n in rows:
+        log(f"accuracy {name}: u0 mean {mean:.3e} max {mx:.3e}, {n_ok}/{n} status OK, "
+            f"CI gate {'pass' if acc.ci_gate_ok(mean, mx) else 'FAIL'}, "
+            f"strict <= {acc.CONTRACT_MAX}: {'pass' if mx <= acc.CONTRACT_MAX else 'miss'}")
+    strict = all(mx <= acc.CONTRACT_MAX for _, _, mx, _, _ in rows)
+    log(json.dumps({"accuracy_ok": strict, "u0_max_err": cold["u0_max_err"],
+                    "u0_mean_err": cold["u0_mean_err"], "u0_warm_max_err": g["warm_max"],
+                    "u0_steady_max_err": g["steady_max"]}))
+    for name, mean, mx, n_ok, n in rows:
+        if n_ok != n or not acc.ci_gate_ok(mean, mx):
+            raise AssertionError(f"accuracy {name}: CI gate failed")
+
+
+def phase_main_path(dev, card):
+    from sdf_nmpc_tpu_torch.ops import _lib
+    from sdf_nmpc_tpu_torch.solver import init_state, make_rti_step
+    from sdf_nmpc_tpu_torch.utils import accuracy
+
+    cfg, ocp, layout, _ = accuracy.build_setup(device=dev)
+    inputs = bench_inputs(ocp, cfg, layout, MAIN_B, SEED, dev)
+    cold = make_rti_step(ocp, cfg, budget="cold", with_evals=False)
+    steady = make_rti_step(ocp, cfg, budget="steady", with_evals=False)
+    state0 = init_state(ocp, inputs.x0)
+    steady(cold(state0, inputs).state, inputs)  # warm-up: first-call set-up
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    res = cold(state0, inputs)
+    n_ok_cold = int((res.status == 0).sum())
+    torch.cuda.synchronize()
+    # as bench.py: N_STEADY chained steps ended by one synchronize, so the
+    # host queues each step while the card still runs the one before
+    t0 = time.perf_counter()
+    for _ in range(N_STEADY):
+        res = steady(res.state, inputs)
+    torch.cuda.synchronize()
+    span = time.perf_counter() - t0
+    counts = dict(_lib.launch_counts)
+    t_step = span / N_STEADY
+    peak = torch.cuda.max_memory_allocated()
+
+    steps = N_STEADY + 1
+    log(f"main path: B={MAIN_B}, 1 cold + {N_STEADY} steady steps; launches {counts}, "
+        f"per step {({k: v / steps for k, v in counts.items()})}")
+    for name, per in PER_STEP.items():
+        if counts[name] != per * steps:
+            raise AssertionError(f"{name}: {counts[name]} launches, expected {per * steps}")
+    if n_ok_cold != MAIN_B:
+        raise AssertionError(f"cold step: only {n_ok_cold}/{MAIN_B} scenarios OK")
+    n_ok = int((res.status == 0).sum())
+    if n_ok != MAIN_B:
+        raise AssertionError(f"last steady step: only {n_ok}/{MAIN_B} scenarios OK")
+    X, U = res.state.X, res.state.U
+    if X.shape != (MAIN_B, ocp.N + 1, ocp.nx) or U.shape != (MAIN_B, ocp.N, ocp.nu):
+        raise AssertionError(f"unexpected state shapes {tuple(X.shape)}, {tuple(U.shape)}")
+    if not (torch.isfinite(X).all() and torch.isfinite(U).all()):
+        raise AssertionError("non-finite trajectories")
+    log(f"main path: {N_STEADY} chained steady steps in {span * 1e3:.3f} ms: "
+        f"{t_step * 1e3:.3f} ms/step, {MAIN_B * N_STEADY / span:.1f} solves/s; "
+        f"peak memory {peak / 2**30:.3f} GiB; card {card}")
+
+    # secondary: the same steps one at a time, each ended by a synchronize
+    times = []
+    state = res.state
+    for _ in range(N_STEADY):
+        t1 = time.perf_counter()
+        state = steady(state, inputs).state
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    ms = np.asarray(times) * 1e3
+    log(f"main path, each step synchronized: median {np.median(ms):.3f} ms (min "
+        f"{ms.min():.3f}, max {ms.max():.3f}, mean {ms.mean():.3f} over {N_STEADY})")
+    return counts, t_step, steady, res.state, inputs
+
+
+def phase_kernel_numbers(counts, t_step, steady, state, inputs, card):
+    from sdf_nmpc_tpu_torch.ops import condense_kernel, ip_kernel, lin_kernels, sdf_fused
+
+    with Capture() as cap:
+        steady(state, inputs)
+    calls = {name: cap.args(name) for name in KERNELS}
+    log(f"kernel numbers: inputs of one steady step at B={MAIN_B}")
+    errs = check_all(cap, "main path")
+    part, peaks = card_peaks(card.split(",")[0])
+    runs = {
+        "lin_y_sens": (lin_kernels.lin_y_sens,
+                       lambda a: lin_kernels.lin_y_sens_plain(a[0], *a[2:]), lin_cost),
+        "sdf_fused": (sdf_fused.sdf_value_grad, lambda a: sdf_fused.sdf_value_grad_plain(*a),
+                      sdf_cost),
+        "condense": (condense_kernel.condense, lambda a: condense_kernel.condense_plain(*a),
+                     condense_cost),
+        "ip_phase": (ip_kernel.ip_phase, lambda a: ip_kernel.ip_phase_plain(*a), ip_cost),
+    }
+    rows = []
+    for name, (kern, plain, cost) in runs.items():
+        ms = plain_ms = bound_ms = 0.0
+        ops_total = bytes_total = 0.0
+        for a in calls[name]:  # ip_phase: the warm and the stiff launch of the step
+            ms += cuda_ms(lambda: kern(*a), reps=5)
+            plain_ms += cuda_ms(lambda: plain(a), reps=2)
+            ops, by = cost(a)
+            ops_total += ops
+            bytes_total += by
+        bound_ms, bound_by = bound(ops_total, bytes_total, peaks)
+        src, replaces = KERNELS[name]
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                     "launches": counts[name], "max_abs_err": errs[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None})
+        log(f"  {name:11s} {ms:9.4f} ms/step ({len(calls[name])} launch), plain {plain_ms:9.3f} "
+            f"ms, bound {bound_ms:.4f} ms by {bound_by} ({ops_total:.3e} ops, "
+            f"{bytes_total / 1e9:.4f} GB; {part} peaks), {ms and bound_ms / ms:.1%} of bound")
+    k_sum = sum(r["ms"] for r in rows)
+    log(f"kernels: {k_sum:.3f} ms of the {t_step * 1e3:.3f} ms chained steady step "
+        f"({k_sum / (t_step * 1e3):.1%}); card {card}")
+    return rows
+
+
+def phase_profile(steady, state, inputs, t_step, card):
+    """Where the time goes: the device's busy share of chained steady steps,
+    and the part of it outside the four kernels (PyTorch ops).  The kernels'
+    own times come from CUDA events in phase 7."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            state = steady(state, inputs).state
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
+    busy = other = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3 / PROFILE_STEPS
+            busy += ms
+            if not any(f"{k}_kernel" in e.name for k in KERNELS):
+                other += ms
+    if not busy > 0:
+        raise AssertionError("the profiler saw no device time")
+    log(f"where the time goes ({PROFILE_STEPS} profiled chained steady steps, B={MAIN_B}): "
+        f"device busy {busy:.3f} ms per step, {busy / wall:.1%} of the profiled {wall:.3f} ms "
+        f"and {busy / (t_step * 1e3):.1%} of the unprofiled {t_step * 1e3:.3f} ms; PyTorch ops "
+        f"(all but the four kernels) {other:.3f} ms per step; card {card}")
+
+
+def main() -> int:
+    card = phase_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    phase_build()
+    phase_kernel_checks(dev)
+    phase_accuracy(dev)
+    counts, t_step, steady, state, inputs = phase_main_path(dev, card)
+    phase_profile(steady, state, inputs, t_step, card)
+    rows = phase_kernel_numbers(counts, t_step, steady, state, inputs, card)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,67 @@
+"""Quaternion and rotation helpers on tensors.
+
+Conventions match the JAX package: quaternions are scalar-first
+[qw qx qy qz] (Hamilton), euler angles are [roll pitch yaw] (Z1Y2X3).  Every
+function works on the last axis and broadcasts over leading batch axes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def quat2rot(q):
+    """Rotation matrix from quaternion: (..., 4) -> (..., 3, 3)."""
+    w, x, y, z = q.unbind(-1)
+    rows = [
+        torch.stack([w * w + x * x - y * y - z * z, 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), w * w - x * x + y * y - z * z, 2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), w * w - x * x - y * y + z * z], -1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+def euler2rot(euler):
+    """Rotation matrix from [roll pitch yaw]: (..., 3) -> (..., 3, 3)."""
+    r, p, y = euler.unbind(-1)
+    cr, sr = torch.cos(r), torch.sin(r)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cy, sy = torch.cos(y), torch.sin(y)
+    row0 = torch.stack([cp * cy, sr * sp * cy - cr * sy, cr * sp * cy + sr * sy], -1)
+    row1 = torch.stack([cp * sy, sr * sp * sy + cr * cy, cr * sp * sy - sr * cy], -1)
+    row2 = torch.stack([-sp, sr * cp, cr * cp], -1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def quat2yaw(q):
+    """Yaw angle from quaternion."""
+    w, x, y, z = q.unbind(-1)
+    return torch.atan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
+
+
+def yaw2quat(yaw):
+    """Pure-yaw quaternion."""
+    h = yaw * 0.5
+    z = torch.zeros_like(h)
+    return torch.stack([torch.cos(h), z, z, torch.sin(h)], -1)
+
+
+def quat_invert(q):
+    """Inverse (normalized conjugate) quaternion."""
+    sign = torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    return q * sign / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def hamilton_prod(q1, q2):
+    """Hamilton product q1*q2."""
+    w1, x1, y1, z1 = q1.unbind(-1)
+    w2, x2, y2, z2 = q2.unbind(-1)
+    return torch.stack(
+        [
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        ],
+        -1,
+    )

@@ -1,0 +1,21 @@
+"""Hand-written CUDA kernels of the RTI step and their plain PyTorch versions.
+
+Each wrapper launches its kernel on CUDA tensors and runs its plain version
+on CPU tensors; ``_lib.launch_counts`` counts the kernel launches."""
+
+from ._lib import launch_counts, reset_launch_counts
+from .condense_kernel import condense, condense_plain
+from .ip_kernel import ip_phase, ip_phase_plain, make_fused_solve
+from .lin_kernels import lin_y_sens, lin_y_sens_plain
+from .sdf_fused import (
+    embed_with_tangents,
+    pack_neural_df_params,
+    sdf_value_grad,
+    sdf_value_grad_plain,
+)
+
+__all__ = [
+    "condense", "condense_plain", "embed_with_tangents", "ip_phase", "ip_phase_plain",
+    "launch_counts", "lin_y_sens", "lin_y_sens_plain", "make_fused_solve",
+    "pack_neural_df_params", "reset_launch_counts", "sdf_value_grad", "sdf_value_grad_plain",
+]

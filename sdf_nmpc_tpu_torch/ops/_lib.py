@@ -1,0 +1,141 @@
+"""Build and load the port's CUDA kernels: one shared library, plain C ABI.
+
+``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` (no fast math) into an
+object file, all sources at once in parallel, and links them into
+``_build/libsdf_nmpc_kernels-<hash>.so``, where the hash covers the sources
+and the flags.  The library is loaded with ``ctypes``; nothing here includes
+PyTorch's headers.  The build happens at first use, never at import.
+
+``launch_counts`` holds one plain integer per kernel; each wrapper adds one
+where it launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+PKG = Path(__file__).resolve().parents[1]
+CSRC = PKG / "csrc"
+BUILD = PKG / "_build"
+SOURCES = ("lin_y_sens.cu", "sdf_fused.cu", "condense.cu", "ip_phase.cu")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+launch_counts = {"lin_y_sens": 0, "sdf_fused": 0, "condense": 0, "ip_phase": 0}
+
+# what the last build printed (ptxas register / spill report)
+build_info = {"log": "", "path": None}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "lin_y_sens_launch": [_P] * 11 + [_I] + [_F] * 4 + [_P],
+    "sdf_fused_launch": [_P] * 15 + [_I] * 5 + [_F, _P],
+    "condense_launch": [_P] * 18 + [_I] * 6 + [_P],
+    "ip_phase_launch": [_P] * 12 + [_I] * 7 + [_F] * 5 + [_P],
+}
+
+
+def reset_launch_counts():
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(ARCH + NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels (if the sources changed) and return the library path."""
+    lib = BUILD / f"libsdf_nmpc_kernels-{_digest()}.so"
+    if lib.exists():
+        build_info["path"] = str(lib)
+        return lib
+    nvcc = _nvcc()
+    work = BUILD / f"tmp-{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src in SOURCES:
+        obj = work / (Path(src).stem + ".o")
+        cmd = [nvcc, *ARCH, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, _, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {src}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+    tmp_lib = work / lib.name
+    link = subprocess.run(
+        [nvcc, *ARCH, "-shared", "-o", str(tmp_lib), *[str(o) for _, o, _ in procs]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+    os.replace(tmp_lib, lib)  # atomic: concurrent builders never see half a file
+    shutil.rmtree(work, ignore_errors=True)
+    build_info.update(log="\n".join(logs), path=str(lib))
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str):
+    """Raise if a launch function returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_ptr() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def require_cuda_f32(name: str, *tensors):
+    """Every tensor a kernel reads must be CUDA, float32 and contiguous."""
+    dev = tensors[0].device
+    for i, t in enumerate(tensors):
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: argument {i} is not on {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: argument {i} is {t.dtype}; the kernel takes float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: argument {i} is not contiguous")
+
+
+def require_shape(name: str, t: torch.Tensor, shape: tuple):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")

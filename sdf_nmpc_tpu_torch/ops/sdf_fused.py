@@ -1,0 +1,169 @@
+"""Kernel 2: NeuralDF value + position gradient (``sdf_value_grad``).
+
+Counterpart of sdf_nmpc_tpu/ops/sdf_fused.py ``_kernel`` (:154) in its exact
+f32 mode, with the host prep of ``pack_neural_df_params`` (:44) and
+``_embed_with_tangents`` (:103).  One pass evaluates the stacked rows
+
+    rows = [primal; tangent_x; tangent_y; tangent_z]
+
+through every dense layer: Z = rows @ W, H = act(Z_p + b), dH = act'(Z_p + b)
+* Z_t, with the res='full' re-concat of the input rows applied to primal and
+tangent rows alike.  The embedding and its analytic tangent basis are
+computed here on the host side (``embed_with_tangents``): emb = [x, sin(xb),
+cos(xb)] with xb = (x @ dirs) kron freqs, demb_k = [e_k, cos(xb) J_k,
+-sin(xb) J_k].  It uses cos(xb) where the plain module computes
+sin(xb + pi/2); in f32 the two differ for large |xb|, so this path mirrors
+the JAX kernel path and ``NeuralDF.forward`` mirrors ``module.apply``.
+
+On a CUDA tensor ``sdf_value_grad`` launches ``csrc/sdf_fused.cu``; on a CPU
+tensor it runs the plain version below (the same stacked-tangent algebra with
+``torch.matmul``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..nn.embeddings import PositionEmbedding
+from . import _lib
+
+_ACT_CODES = {"sin": 0, "relu": 1, "softplus": 2}
+_HID = 256  # the kernel's padded hidden width
+_KC = 32  # the kernel's weight-chunk rows
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def pack_neural_df_params(module, dtype=None) -> dict:
+    """The NeuralDF's dense weights in (in, out) layout, plus layout metadata.
+    ``dtype`` casts the weights (default: the module's own)."""
+    if module.res != "full":
+        raise NotImplementedError("the fused value+grad path supports res='full'")
+    cast = (lambda t: t.detach().to(dtype)) if dtype is not None else (lambda t: t.detach())
+    layers = (module.main1_0, module.main1_1, module.main2_0, module.main2_1, module.df)
+    packed = {}
+    for i, lin in enumerate(layers, start=1):
+        packed[f"W{i}"] = cast(lin.weight).t().contiguous()
+        packed[f"b{i}"] = cast(lin.bias).contiguous()
+    packed.update(
+        nemb=module.nb_embeddings, L=module.size_latent,
+        in1=module.nb_embeddings + module.size_latent, sizes=module.layer_sizes,
+        w0=float(module.w0), act=module.act, embed_fn=module.embed_fn,
+    )
+    return packed
+
+
+def embed_with_tangents(embed_fn, pos):
+    """(emb (P, nemb), demb (P, 3, nemb)): embedding and its tangent basis."""
+    P = pos.shape[0]
+    eye = torch.eye(3, dtype=pos.dtype, device=pos.device).expand(P, 3, 3)
+    if embed_fn is None:
+        return pos, eye
+    if not isinstance(embed_fn, PositionEmbedding):
+        raise TypeError(f"unsupported embedding {type(embed_fn).__name__}")
+    dirs = torch.as_tensor(embed_fn.dirs, dtype=pos.dtype, device=pos.device)  # (3, nd)
+    freqs = torch.as_tensor(embed_fn.freq_bands, dtype=pos.dtype, device=pos.device)
+    proj = pos @ dirs  # (P, nd)
+    xb = (proj[..., None] * freqs).reshape(P, -1)  # (P, nd*nf)
+    s, c = torch.sin(xb), torch.cos(xb)
+    emb = torch.cat([pos, s, c], dim=-1)
+    J = (dirs[:, :, None] * freqs).reshape(3, -1)  # (3, nd*nf)
+    demb = torch.cat([eye, c[:, None, :] * J, -s[:, None, :] * J], dim=-1)
+    return emb, demb
+
+
+def _act_pair(z, act: str, w0: float):
+    """(act(z), act'(z))."""
+    if act == "sin":
+        return torch.sin(w0 * z), w0 * torch.cos(w0 * z)
+    if act == "relu":
+        return torch.clamp(z, min=0.0), (z > 0).to(z.dtype)
+    if act == "softplus":
+        return torch.nn.functional.softplus(z), torch.sigmoid(z)
+    raise ValueError(act)
+
+
+def sdf_value_grad_plain(packed, pos, latent):
+    """pos (P, 3), latent (P, L) -> (df (P,), grad (P, 3))."""
+    emb, demb = embed_with_tangents(packed["embed_fn"], pos)
+    P0 = torch.cat([emb, latent], dim=-1)  # (P, in1)
+    T0 = torch.cat([demb, demb.new_zeros(demb.shape[:2] + (latent.shape[-1],))], dim=-1)
+    act, w0 = packed["act"], packed["w0"]
+
+    def dense_pair(Pr, T, i):
+        h, hp = _act_pair(Pr @ packed[f"W{i}"] + packed[f"b{i}"], act, w0)
+        return h, hp[:, None, :] * (T @ packed[f"W{i}"])
+
+    H, T = dense_pair(P0, T0, 1)
+    H, T = dense_pair(H, T, 2)
+    H, T = dense_pair(torch.cat([H, P0], -1), torch.cat([T, T0], -1), 3)
+    H, T = dense_pair(H, T, 4)
+    df = H @ packed["W5"] + packed["b5"]
+    return df[:, 0], (T @ packed["W5"])[..., 0]
+
+
+def _kernel_weights(packed) -> dict:
+    """Weights zero-padded to the kernel's layout (cached on ``packed``):
+    hidden widths to 256, the input width to a multiple of 32, and W3's rows
+    split as [h (256) | input rows (in1p)].  Zero pads are inert."""
+    if "_kernel" in packed:
+        return packed["_kernel"]
+    if any(s > _HID for s in packed["sizes"]):
+        raise ValueError(f"the sdf kernel takes hidden widths <= {_HID}, got {packed['sizes']}")
+    in1, in1p = packed["in1"], _round_up(packed["in1"], _KC)
+    s1 = packed["sizes"][1]
+    dev = packed["W1"].device
+
+    def pad(w, rows, cols):
+        out = torch.zeros(rows, cols, dtype=torch.float32, device=dev)
+        out[: w.shape[0], : w.shape[1]] = w
+        return out
+
+    def padb(b):
+        out = torch.zeros(_HID, dtype=torch.float32, device=dev)
+        out[: b.shape[0]] = b
+        return out
+
+    W3 = torch.zeros(_HID + in1p, _HID, dtype=torch.float32, device=dev)
+    W3[:s1, : packed["W3"].shape[1]] = packed["W3"][:s1]
+    W3[_HID : _HID + in1, : packed["W3"].shape[1]] = packed["W3"][s1:]
+    kw = dict(
+        W1=pad(packed["W1"], in1p, _HID), b1=padb(packed["b1"]),
+        W2=pad(packed["W2"], _HID, _HID), b2=padb(packed["b2"]),
+        W3=W3, b3=padb(packed["b3"]),
+        W4=pad(packed["W4"], _HID, _HID), b4=padb(packed["b4"]),
+        w5=padb(packed["W5"][:, 0]), b5=packed["b5"].to(torch.float32).contiguous(),
+        in1p=in1p,
+    )
+    packed["_kernel"] = kw
+    return kw
+
+
+def _sdf_value_grad_cuda(packed, pos, latent):
+    P = pos.shape[0]
+    kw = _kernel_weights(packed)
+    emb, demb = embed_with_tangents(packed["embed_fn"], pos)
+    emb, demb = emb.contiguous(), demb.contiguous()
+    weights = [kw[k] for k in ("W1", "b1", "W2", "b2", "W3", "b3", "W4", "b4", "w5", "b5")]
+    _lib.require_cuda_f32("sdf_value_grad", pos, latent, emb, demb, *weights)
+    _lib.require_shape("sdf_value_grad pos", pos, (P, 3))
+    _lib.require_shape("sdf_value_grad latent", latent, (P, packed["L"]))
+    df = torch.empty(P, dtype=torch.float32, device=pos.device)
+    grad = torch.empty(P, 3, dtype=torch.float32, device=pos.device)
+    err = _lib.library().sdf_fused_launch(
+        *[t.data_ptr() for t in (emb, demb, latent, *weights, df, grad)],
+        P, packed["nemb"], packed["L"], kw["in1p"], _ACT_CODES[packed["act"]],
+        packed["w0"], _lib.stream_ptr())
+    _lib.check(err, "sdf_value_grad")
+    _lib.launch_counts["sdf_fused"] += 1
+    return df, grad
+
+
+def sdf_value_grad(packed, pos, latent):
+    """pos (P, 3), latent (P, L) -> (df (P,), grad (P, 3)); kernel on CUDA
+    tensors, plain version on CPU tensors."""
+    if pos.is_cuda:
+        return _sdf_value_grad_cuda(packed, pos, latent)
+    return sdf_value_grad_plain(packed, pos, latent)

@@ -1,0 +1,326 @@
+"""SQP-RTI step, batch-first: linearize -> condense -> QP -> update.
+
+Counterpart of sdf_nmpc_tpu/solver/sqp.py ``make_rti_step`` on the condensed
+backend.  The JAX step is single-scenario and reaches its kernels through
+``custom_vmap`` rules; here every tensor carries the scenario axis first,
+(B, N+1, nx) and the like, and the step calls the four kernel wrappers
+directly:
+
+  1. ``ops.lin_kernels.lin_y_sens``   RK4 + A, B + stage residual + Jyx, Jyu
+  2. ``ops.sdf_fused.sdf_value_grad`` NeuralDF value + position gradient
+  3. ``ops.condense_kernel.condense`` condensing recursion + condensed rows
+  4. ``ops.ip_kernel.ip_phase``       (inside ``solve_qp``) two IP phases
+
+The FoV-row, ``yN`` and terminal ``hN`` Jacobians use ``torch.func``; the
+Gram H/g assembly is one ``torch.bmm``.  A non-finite update leaves the
+scenario's warm start untouched and reports STATUS_NAN.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.func import jacfwd, jacrev, vmap
+
+from ..ocp import OcpSpec
+from ..ops import condense_kernel, lin_kernels, sdf_fused
+from .qp import QpData, QpDuals, solve_qp
+
+STATUS_OK = 0
+STATUS_NAN = 1
+STATUS_NOT_CONVERGED = 2  # KKT residual above cfg.solver.kkt_tol (state kept)
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def resolve_stiff_knobs(cfg):
+    """(k_stiff, stiff_iters, ratio_cap) with flags-adaptive 'auto' defaults."""
+    rf = bool(cfg.flags.recursive_feasibility)
+    k = cfg.solver.get("qp_stiff_k", "auto")
+    if k in (None, "auto"):
+        k = 48 if rf else 8
+    si = cfg.solver.get("qp_stiff_iters", "auto")
+    if si == "auto":
+        si = 16 if rf else 8
+    cap = cfg.solver.get("qp_ratio_cap", "auto")
+    if cap == "auto":
+        cap = 1e8
+    return int(k), (None if si is None else int(si)), (None if cap is None else float(cap))
+
+
+def resolve_iter_budget(cfg, budget: str) -> int:
+    """Total IP iterations for a budget phase (cold 20, warm 18, steady 15 on
+    the standard OCP)."""
+    rf = bool(cfg.flags.recursive_feasibility)
+    cold = cfg.solver.get("qp_iters", "auto")
+    if cold in (None, "auto"):
+        cold = 26 if rf else 20
+    if budget == "cold":
+        return int(cold)
+    warm = cfg.solver.get("qp_iters_warm", "auto")
+    if warm in (None, "auto"):
+        warm = 22 if rf else 18
+    if budget == "warm":
+        return int(warm)
+    steady = cfg.solver.get("qp_iters_steady", "auto")
+    if steady in (None, "auto"):
+        steady = warm if rf else 15
+    return int(steady)
+
+
+def resolve_qp_backend(cfg, N: int) -> str:
+    """'auto' is condensed up to N=20 and riccati beyond."""
+    qp_backend = str(cfg.solver.get("qp_backend", "auto"))
+    if qp_backend == "auto":
+        qp_backend = "condensed" if N <= 20 else "riccati"
+    return qp_backend
+
+
+class SolverState(NamedTuple):
+    X: torch.Tensor  # (B, N+1, nx)
+    U: torch.Tensor  # (B, N, nu)
+    qp_duals: Optional[QpDuals] = None
+
+
+class SolveInputs(NamedTuple):
+    x0: torch.Tensor  # (B, nx)
+    yref: torch.Tensor  # (B, N, ny)
+    W: torch.Tensor  # (B, N, ny) diagonal weights
+    yrefN: torch.Tensor  # (B, nyN)
+    WN: torch.Tensor  # (B, nyN)
+    p: torch.Tensor  # (B, N+1, np)
+
+
+class SolveResult(NamedTuple):
+    state: SolverState
+    u0: torch.Tensor  # (B, nu)
+    status: torch.Tensor  # (B,) int32: 0 ok, 1 NaN-rejected, 2 not converged
+    kkt_residual: torch.Tensor  # (B,)
+    qp_complementarity: torch.Tensor  # (B,)
+    evals: Optional[torch.Tensor]  # (B, N+1, neval) diagnostics or None
+
+
+def init_state(ocp: OcpSpec, x0, dtype=torch.float32) -> SolverState:
+    """Fill all nodes with x0 (B, nx) / u_hover, on the OCP's device."""
+    x0 = torch.as_tensor(x0, dtype=dtype, device=ocp.device)
+    B = x0.shape[0]
+    u_h = torch.as_tensor(ocp.u_hover, dtype=dtype, device=ocp.device)
+    return SolverState(X=x0[:, None, :].expand(B, ocp.N + 1, ocp.nx).clone(),
+                       U=u_h.expand(B, ocp.N, ocp.nu).clone())
+
+
+def shift_state(state: SolverState, k: int) -> SolverState:
+    """Shift-by-k warm start; the vacated tail nodes keep their values."""
+    if k <= 0:
+        return state
+    X, U = state.X.clone(), state.U.clone()
+    if k < X.shape[1]:
+        X[:, :-k] = state.X[:, k:]
+    if k < U.shape[1]:
+        U[:, :-k] = state.U[:, k:]
+    return SolverState(X=X, U=U, qp_duals=state.qp_duals)
+
+
+def _budget_knobs(cfg, budget: str):
+    """(qp_iters, k_stiff, stiff_iters, ratio_cap) for a budget phase."""
+    if budget not in ("cold", "warm", "steady"):
+        raise ValueError(f"unknown budget {budget!r}")
+    qp_iters = resolve_iter_budget(cfg, budget)
+    k_stiff, stiff_iters, ratio_cap = resolve_stiff_knobs(cfg)
+    if budget in ("warm", "steady"):
+        stiff_iters = cfg.solver.get("qp_stiff_iters_warm", stiff_iters)
+    if budget == "steady":
+        ss = cfg.solver.get("qp_stiff_iters_steady", "auto")
+        if ss == "auto":
+            if (bool(cfg.flags.recursive_feasibility) or stiff_iters is None
+                    or int(stiff_iters) == 0):
+                ss = stiff_iters
+            else:
+                ss = 4
+        stiff_iters = None if ss is None else int(ss)
+    # the ratio cap is an f32 remedy: f64 keeps the dtype default
+    if _DTYPES[str(cfg.solver.dtype)] != torch.float32:
+        ratio_cap = None
+    return qp_iters, k_stiff, stiff_iters, ratio_cap
+
+
+def _check_supported(cfg, N):
+    s = cfg.solver
+    if resolve_qp_backend(cfg, N) != "condensed":
+        raise NotImplementedError(
+            "only the condensed QP backend is ported; the Riccati backend is "
+            "queued in ROADMAP.md")
+    unsupported = {
+        "dual_warm_start": bool(s.get("dual_warm_start", False)),
+        "ir_steps": int(s.get("ir_steps", 0)) != 0,
+        "qp_data_bf16": bool(s.get("qp_data_bf16", False)),
+        "qp_compute_dtype": s.get("qp_compute_dtype", None) is not None,
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"solver settings not ported: {bad} (the composed QP path with warm "
+            "duals and refinement is queued in ROADMAP.md)")
+    if str(s.dtype) not in _DTYPES:
+        raise ValueError(f"unsupported solver dtype {s.dtype!r}")
+
+
+def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = True):
+    """Build the batched RTI step: step(state, inputs) -> SolveResult.
+
+    budget selects the QP iteration schedule ("cold", "warm" or "steady").
+    with_evals=False skips the per-node "sdf" diagnostics (a second NeuralDF
+    pass over all N+1 nodes)."""
+    N, nx, nu = ocp.N, ocp.nx, ocp.nu
+    _check_supported(cfg, N)
+    dtype = _DTYPES[str(cfg.solver.dtype)]
+    dev = ocp.device
+    if dev.type == "cuda" and dtype != torch.float32:
+        raise NotImplementedError("the CUDA kernels run float32 only")
+    if ocp.ny != ocp.model.ny:
+        raise NotImplementedError("extra stage cost rows need kernel 9 (queued in ROADMAP.md)")
+    qp_iters, k_stiff, stiff_iters, ratio_cap = _budget_knobs(cfg, budget)
+    nz = N * nu
+    nh = ocp.nh
+    layout = ocp.layout
+    kkt_tol = cfg.solver.get("kkt_tol", None)
+    mu0, box_margin = float(cfg.solver.barrier_init), float(cfg.solver.box_margin)
+
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+    dt = t(ocp.dt)
+    scale = t(ocp.cost_scaling)
+    lbu, ubu = t(ocp.lbu), t(ocp.ubu)
+    lm = float(ocp.lm_reg)
+    lh, uh, zl, Zl = t(ocp.lh), t(ocp.uh), t(ocp.zl), t(ocp.Zl)
+    lhN, uhN, zlN, ZlN = t(ocp.lhN), t(ocp.uhN), t(ocp.zlN), t(ocp.ZlN)
+    z1_stage = (zl.expand(N, nh) * scale[:N, None]).reshape(N * nh)
+    z2_stage = (Zl.expand(N, nh) * scale[:N, None]).reshape(N * nh)
+    lh_all = torch.cat([lh.repeat(N), lhN])
+    uh_all = torch.cat([uh.repeat(N), uhN])
+    z1_all = torch.cat([z1_stage, zlN])
+    z2_all = torch.cat([z2_stage, ZlN])
+    eye_nz = torch.eye(nz, dtype=dtype, device=dev)
+
+    # the network in the solver dtype: packed for kernel 2, and as a module
+    # for the terminal row (differentiated by autograd, as in JAX) and evals
+    packed = sdf_fused.pack_neural_df_params(ocp.sdf, dtype)
+    net = copy.deepcopy(ocp.sdf).to(dtype).requires_grad_(False)
+    value_grad = lambda pos, latent: sdf_fused.sdf_value_grad(packed, pos, latent)
+
+    cheap = ocp.h_stage_cheap
+    n_cheap = len(ocp.cheap_stage_indices)
+
+    def fov_node(x3, x_rest, p):
+        return cheap(torch.cat([x3, x_rest], -1), p)
+
+    fov_jac = vmap(jacfwd(fov_node, argnums=0))
+    yN_jac = vmap(jacfwd(ocp.yN, argnums=0))
+    hN_jac = vmap(jacrev(lambda x, p: ocp.h_term(x, p, net), argnums=0))
+
+    def step(state: SolverState, inp: SolveInputs) -> SolveResult:
+        X = state.X.to(dtype)
+        U = state.U.to(dtype)
+        x0 = inp.x0.to(dtype)
+        p = inp.p.to(dtype)
+        W, WN = inp.W.to(dtype), inp.WN.to(dtype)
+        B = X.shape[0]
+        M = B * N
+        XN_, PN_ = X[:, :N].reshape(M, nx), p[:, :N].reshape(M, -1)
+
+        # ---- 1. per-node linearization: kernel 1 ----
+        x_next, A, Bm, res, Jyx, Jyu = lin_kernels.lin_y_sens(
+            ocp.model, layout, XN_.contiguous(), U.reshape(M, nu).contiguous(),
+            dt.repeat(B).contiguous(), PN_,
+            inp.yref.to(dtype).reshape(M, -1).contiguous())
+        ny = res.shape[-1]
+        x_next = x_next.reshape(B, N, nx)
+        A, Bm = A.reshape(B, N, nx, nx), Bm.reshape(B, N, nx, nu)
+        res, Jyx, Jyu = res.reshape(B, N, ny), Jyx.reshape(B, N, ny, nx), Jyu.reshape(B, N, ny, nu)
+
+        # ---- constraint rows: FoV rows by jacfwd over x[:3], sdf row by kernel 2 ----
+        h_cheap = cheap(XN_, PN_)
+        J3 = fov_jac(XN_[:, :3], XN_[:, 3:], PN_)  # (M, n_cheap, 3)
+        h_sdf, dhdx3 = ocp.sdf_row_batch(XN_, PN_, value_grad)
+        h_val = torch.zeros(M, nh, dtype=dtype, device=dev)
+        Jhx = torch.zeros(M, nh, nx, dtype=dtype, device=dev)
+        h_val[:, :n_cheap] = h_cheap
+        Jhx[:, :n_cheap, :3] = J3
+        h_val[:, ocp.sdf_stage_idx] = h_sdf.to(dtype)
+        Jhx[:, ocp.sdf_stage_idx, :3] = dhdx3.to(dtype)
+        h_val, Jhx = h_val.reshape(B, N, nh), Jhx.reshape(B, N, nh, nx)
+        Jhu = torch.zeros(B, N, nh, nu, dtype=dtype, device=dev)
+        defect = x_next - X[:, 1:]
+
+        # ---- terminal rows ----
+        xN, pN = X[:, N], p[:, N]
+        resN = ocp.yN(xN, pN) - inp.yrefN.to(dtype)
+        JxN = yN_jac(xN, pN)
+        hN_val = ocp.h_term(xN, pN, net)
+        JhxN = hN_jac(xN, pN)
+
+        # ---- 2. condensing: kernel 3 ----
+        e0 = x0 - X[:, 0]
+        e_st, E_st, eN, EN, G, res_c, C_st, c_st = condense_kernel.condense(
+            *[v.contiguous() for v in (A, Bm, defect, e0, Jyx, Jyu, res, Jhx, Jhu, h_val)])
+
+        # ---- 3. condensed Hessian / gradient: one Gram product ----
+        Ws = W * scale[:N, None]
+        GN = JxN @ EN  # (B, nyN, nz)
+        resN_c = resN + (JxN @ eN[..., None])[..., 0]
+        # Levenberg-Marquardt rows (acados convention): 0.5 lm ||e_k + E_k dz||^2
+        E_all = torch.cat([E_st, EN[:, None]], 1)  # (B, N+1, nx, nz)
+        e_all = torch.cat([e_st, eN[:, None]], 1)  # (B, N+1, nx)
+        M_rows = torch.cat([G.reshape(B, N * ny, nz), GN, E_all.reshape(B, (N + 1) * nx, nz)], 1)
+        w_rows = torch.cat([Ws.reshape(B, N * ny), WN,
+                            torch.full((B, (N + 1) * nx), lm, dtype=dtype, device=dev)], 1)
+        r_rows = torch.cat([(Ws * res_c).reshape(B, N * ny), WN * resN_c,
+                            lm * e_all.reshape(B, (N + 1) * nx)], 1)
+        Mt = M_rows.transpose(1, 2)
+        H = torch.bmm(Mt * w_rows[:, None, :], M_rows) + lm * eye_nz
+        g = torch.bmm(Mt, r_rows[..., None])[..., 0]
+
+        C = torch.cat([C_st.reshape(B, N * nh, nz), JhxN @ EN], 1)
+        c0 = torch.cat([c_st.reshape(B, N * nh), hN_val + (JhxN @ eN[..., None])[..., 0]], 1)
+        qp = QpData(
+            H=H, g=g, C=C, c0=c0,
+            lh=lh_all.expand(B, -1), uh=uh_all.expand(B, -1),
+            z1=z1_all.expand(B, -1), z2=z2_all.expand(B, -1),
+            lb=(lbu - U).reshape(B, nz), ub=(ubu - U).reshape(B, nz),
+        )
+
+        # ---- 4. QP: kernel 4, two phases ----
+        qp_res = solve_qp(qp, iters=qp_iters, mu0=mu0, box_margin=box_margin,
+                          k_stiff=k_stiff, stiff_iters=stiff_iters,
+                          ratio_cap_override=ratio_cap)
+        dz = qp_res.dz
+
+        # ---- 5. linear trajectory update + NaN guard ----
+        dU = dz.reshape(B, N, nu)
+        dX = e_all + (E_all @ dz[:, None, :, None])[..., 0]
+        U_new, X_new = U + dU, X + dX
+        bad = ~(torch.isfinite(U_new).flatten(1).all(1) & torch.isfinite(X_new).flatten(1).all(1))
+        status = torch.where(bad, STATUS_NAN, STATUS_OK).to(torch.int32)
+        if kkt_tol is not None:
+            status = torch.where((status == STATUS_OK) & (qp_res.kkt_residual > kkt_tol),
+                                 STATUS_NOT_CONVERGED, status).to(torch.int32)
+        U_new = torch.where(bad[:, None, None], U, U_new)
+        X_new = torch.where(bad[:, None, None], X, X_new)
+        evals = ocp.sdf_eval(X_new, p, net)[..., None] if with_evals else None
+        return SolveResult(
+            state=SolverState(X=X_new, U=U_new, qp_duals=None),
+            u0=U_new[:, 0], status=status, kkt_residual=qp_res.kkt_residual,
+            qp_complementarity=qp_res.complementarity, evals=evals)
+
+    n_sqp = int(cfg.solver.sqp_iters)
+
+    def multi_step(state: SolverState, inp: SolveInputs) -> SolveResult:
+        """cfg.solver.sqp_iters Gauss-Newton iterations (1 = RTI)."""
+        result = step(state, inp)
+        for _ in range(n_sqp - 1):
+            result = step(result.state, inp)
+        return result
+
+    return multi_step

@@ -1,0 +1,146 @@
+"""The u0 accuracy workload of the main path, against the repo's goldens.
+
+Own copy of sdf_nmpc_tpu/utils/accuracy.py ``build_scenarios`` (:73) and of
+the cold (:356) and warm/steady replay checks (:457): 32 hard random cold
+starts for the default att + neural-SDF OCP with the trained 4x256 NeuralDF,
+held against ``tests/golden/accuracy_ref_u0.npz`` (a CPU f64/40-iteration
+solve), and 16 scenarios x 8 captured warm ticks replayed from
+``tests/golden/warm_ref.npz``.  The goldens are read with numpy only.
+
+Gates: the JAX package's CI gate (mean <= 2.5e-4, max <= 2.5e-3,
+tests/test_oracle_parity.py:82-83) and the strict contract (max <= 1e-3 on
+cold, warm ticks 1..steady_after and steady ticks after them, bench.py:126).
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+GOLDEN = Path(__file__).resolve().parents[2] / "tests" / "golden"
+REF_NPZ = GOLDEN / "accuracy_ref_u0.npz"
+WARM_NPZ = GOLDEN / "warm_ref.npz"
+N_SCEN = 32
+WARM_SCEN = 16
+LATENT = 128
+LAYERS = (256, 256, 256, 256)
+CI_MEAN, CI_MAX = 2.5e-4, 2.5e-3
+CONTRACT_MAX = 1e-3
+
+
+def build_scenarios(cfg, ocp, layout, latents=None):
+    """(x0, p, yref_row, W_row) per scenario: hard random cold starts.
+    ``latents`` (N_SCEN, LATENT) replaces the seeded draw (the trained
+    checkpoint's encoded scenes); the rng stream is the same either way."""
+    from ..ref_gen import Ref
+
+    rng = np.random.default_rng(0)
+    N = ocp.N
+    out = []
+    for i in range(N_SCEN):
+        x0 = np.zeros(ocp.nx)
+        x0[3] = 1.0
+        x0[:3] = rng.normal(size=3) * 0.5
+        x0[7:10] = rng.normal(size=3) * 0.5
+        p = np.zeros((N + 1, layout.np_total))
+        layout.set_flag(p, 1.0)
+        layout.set_camera(p, np.zeros(3), np.eye(3))
+        layout.set_q_d(p, [1, 0, 0, 0])
+        lat_i = rng.normal(size=LATENT) * 0.2  # keep the stream position
+        layout.set_latent(p, latents[i] if latents is not None else lat_i)
+        ref = Ref(cfg).use_constrained_weights(False)
+        ref.p = rng.normal(size=3) * 1.5
+        yr, W = ocp.pack_ref(ref)
+        out.append((x0, p, yr, W))
+    return out
+
+
+def build_setup(device="cuda"):
+    """(cfg, ocp, layout, latents) of the workload: the trained production
+    NeuralDF and its encoded-scene latents from ``weights/``."""
+    from ..config import default_config
+    from ..nn.weights import load_prod_latents, load_prod_sdf
+    from ..ocp import build_ocp
+    from ..params import ParamLayout
+
+    cfg = default_config().replace(nn=dict(size_latent=LATENT))
+    sdf = load_prod_sdf(require_latent=LATENT, require_layers=LAYERS, device=device)
+    lat = load_prod_latents()
+    if sdf is None or lat is None or lat.shape[0] < N_SCEN:
+        raise RuntimeError("the accuracy goldens need the trained NeuralDF in weights/")
+    ocp = build_ocp(cfg, sdf=sdf, sdf_max_df=1.0, device=device)
+    return cfg, ocp, ParamLayout.from_cfg(cfg), np.asarray(lat[:N_SCEN], np.float64)
+
+
+def _inputs(ocp, scen, dtype, device, reps=1):
+    from ..solver import SolveInputs
+
+    N = ocp.N
+    T = lambda a: torch.as_tensor(np.repeat(a, reps, axis=0), dtype=dtype, device=device)
+    yrs = np.stack([s[2] for s in scen])
+    Ws = np.stack([s[3] for s in scen])
+    return SolveInputs(
+        x0=T(np.stack([s[0] for s in scen])),
+        yref=T(np.tile(yrs[:, None], (1, N, 1))),
+        W=T(np.tile(Ws[:, None], (1, N, 1))),
+        yrefN=T(yrs[:, : ocp.nyN]),
+        WN=T(Ws[:, : ocp.nyN]),
+        p=T(np.stack([s[1] for s in scen])),
+    )
+
+
+def check_accuracy(device="cuda"):
+    """Cold-start u0 error against accuracy_ref_u0.npz."""
+    from ..solver import init_state, make_rti_step
+
+    cfg, ocp, layout, lat = build_setup(device)
+    dtype = torch.float64 if str(cfg.solver.dtype) == "float64" else torch.float32
+    inputs = _inputs(ocp, build_scenarios(cfg, ocp, layout, lat), dtype, ocp.device)
+    res = make_rti_step(ocp, cfg, with_evals=False)(init_state(ocp, inputs.x0, dtype), inputs)
+    u0, status = res.u0.double().cpu().numpy(), res.status.cpu().numpy()
+    err = np.abs(u0 - np.load(REF_NPZ)["u0"]).max(axis=1)
+    return {"u0_max_err": float(err.max()), "u0_mean_err": float(err.mean()),
+            "n_ok": int((status == 0).sum()), "n_scen": N_SCEN}
+
+
+def check_warm_accuracy(device="cuda", budget="warm"):
+    """Replay every captured tick of warm_ref.npz with one budget; the
+    errors exclude tick 0, the cold tick."""
+    from ..solver import SolverState, make_rti_step
+
+    cap = np.load(WARM_NPZ)
+    cfg, ocp, layout, lat = build_setup(device)
+    dtype = torch.float64 if str(cfg.solver.dtype) == "float64" else torch.float32
+    step = make_rti_step(ocp, cfg, budget=budget, with_evals=False)
+    scen = build_scenarios(cfg, ocp, layout, lat)[:WARM_SCEN]
+    S, T = cap["x0"].shape[:2]
+    flat = lambda a: a.reshape((S * T,) + a.shape[2:])
+    dev = ocp.device
+    inputs = _inputs(ocp, scen, dtype, dev, reps=T)
+    inputs = inputs._replace(x0=torch.as_tensor(flat(cap["x0"]), dtype=dtype, device=dev))
+    state = SolverState(X=torch.as_tensor(flat(cap["X"]), dtype=dtype, device=dev),
+                        U=torch.as_tensor(flat(cap["U"]), dtype=dtype, device=dev))
+    res = step(state, inputs)
+    u0 = res.u0.double().cpu().numpy()
+    err = np.abs(u0 - flat(cap["u0_ref"])).max(axis=1).reshape(S, T)
+    warm = err[:, 1:]
+    return {
+        "u0_max_err": float(warm.max()), "u0_mean_err": float(warm.mean()),
+        "n_ok": int((res.status.cpu().numpy() == 0).sum()),
+        "n_ticks": int(warm.size), "n_solves": int(S * T), "err": err,
+    }
+
+
+def replay_gates(warm: dict, steady: dict, steady_after: int = 3) -> dict:
+    """Warm-budget errors on ticks 1..steady_after and steady-budget errors on
+    the ticks after them, as the controller's schedule serves them."""
+    we = warm["err"][:, 1:steady_after + 1]
+    se = steady["err"][:, steady_after + 1:]
+    return {"warm_max": float(we.max()), "warm_mean": float(we.mean()),
+            "steady_max": float(se.max()), "steady_mean": float(se.mean())}
+
+
+def ci_gate_ok(mean_err: float, max_err: float) -> bool:
+    return mean_err <= CI_MEAN and max_err <= CI_MAX

@@ -1,0 +1,123 @@
+"""The port's four CUDA kernels against their plain PyTorch versions on the
+card.  Every test here is marked ``gpu`` and skips without a CUDA device.
+
+This file imports neither JAX nor the JAX package, so it also runs on a GPU
+host that has only PyTorch (``tests/conftest.py`` imports JAX, hence
+``--noconftest``):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import cuda_device, t32  # noqa: F401  (fixture)
+
+RNG = np.random.default_rng(29)
+
+
+def _count(name):
+    from sdf_nmpc_tpu_torch.ops import _lib
+
+    return _lib.launch_counts[name]
+
+
+@pytest.mark.gpu
+def test_lin_y_sens_kernel_matches_plain(cuda_device):
+    """4099 random points (not a block multiple): x+ 1e-5, A and B 1e-4, the
+    y sweep 2e-4 / 1e-4 (tests/test_ops.py).  The kernel runs the algebraic
+    cos/sin-of-atan2 form, the plain version true atan2."""
+    from sdf_nmpc_tpu_torch.config import default_config
+    from sdf_nmpc_tpu_torch.models import make_model
+    from sdf_nmpc_tpu_torch.ops.lin_kernels import lin_y_sens, lin_y_sens_plain
+    from sdf_nmpc_tpu_torch.params import ParamLayout
+
+    cfg = default_config()
+    model, lay = make_model(cfg), ParamLayout.from_cfg(cfg)
+    M = 4099
+    x = RNG.normal(size=(M, 10))
+    x[:, 3:7] += np.array([1.5, 0, 0, 0])
+    u = RNG.uniform(-0.9, 0.9, size=(M, 4))
+    u[:, 0] = RNG.uniform(0.1, 0.9, size=M)
+    p = np.zeros((M, lay.np_total))
+    qd = RNG.normal(size=(M, 4))
+    p[:, list(lay.q_d)] = qd / np.linalg.norm(qd, axis=1, keepdims=True)
+    args = [t32(a).to(cuda_device) for a in
+            (x, u, RNG.uniform(0.01, 0.1, size=M), p, RNG.normal(size=(M, 11)))]
+    n0 = _count("lin_y_sens")
+    got = lin_y_sens(model, lay, *args)
+    assert _count("lin_y_sens") == n0 + 1
+    want = lin_y_sens_plain(model, *args)
+    tols = [(1e-5, 1e-5), (1e-4, 0), (1e-4, 0), (2e-4, 1e-4), (2e-4, 1e-4), (2e-4, 1e-4)]
+    for g, w, (atol, rtol) in zip(got, want, tols):
+        torch.testing.assert_close(g, w, atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+def test_sdf_fused_kernel_matches_plain_trained_net(cuda_device):
+    """The trained 4x256 net (w0=20), 1037 points (not a tile multiple):
+    value 2e-4, gradient 2e-3 (tests/test_ops.py)."""
+    from sdf_nmpc_tpu_torch.nn.weights import load_prod_latents, load_prod_sdf
+    from sdf_nmpc_tpu_torch.ops.sdf_fused import (
+        pack_neural_df_params,
+        sdf_value_grad,
+        sdf_value_grad_plain,
+    )
+
+    packed = pack_neural_df_params(load_prod_sdf(device=cuda_device))
+    lat = load_prod_latents()
+    P = 1037
+    pos = t32(RNG.normal(size=(P, 3)) * 1.5).to(cuda_device)
+    latent = t32(lat[RNG.integers(0, lat.shape[0], P)]).to(cuda_device)
+    n0 = _count("sdf_fused")
+    df, gr = sdf_value_grad(packed, pos, latent)
+    assert _count("sdf_fused") == n0 + 1
+    df_p, gr_p = sdf_value_grad_plain(packed, pos, latent)
+    torch.testing.assert_close(df, df_p, atol=2e-4, rtol=0)
+    torch.testing.assert_close(gr, gr_p, atol=2e-3, rtol=0)
+
+
+@pytest.mark.gpu
+def test_condense_kernel_matches_plain(cuda_device):
+    """Production dims (N=20, nx=10, nu=4, ny=11, nh=3), 300 scenarios of
+    random data: 1e-5 absolute and relative (tests/test_qp_kernels.py).  A
+    is I + 0.05 noise, the shape of a discretised dynamics Jacobian: with
+    the JAX test's 0.4 noise over 20 stages E grows ~100-fold and rounding
+    scales with it, which no fixed tolerance holds."""
+    from sdf_nmpc_tpu_torch.ops.condense_kernel import condense, condense_plain
+
+    B, N, nx, nu, ny, nh = 300, 20, 10, 4, 11, 3
+    shapes = [(B, N, nx, nu), (B, N, nx), (B, nx), (B, N, ny, nx),
+              (B, N, ny, nu), (B, N, ny), (B, N, nh, nx), (B, N, nh, nu), (B, N, nh)]
+    A = np.eye(nx) + 0.05 * RNG.normal(size=(B, N, nx, nx))
+    args = [t32(a).to(cuda_device) for a in [A] + [RNG.normal(size=s) for s in shapes]]
+    n0 = _count("condense")
+    got = condense(*args)
+    assert _count("condense") == n0 + 1
+    for g, w in zip(got, condense_plain(*args)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_ip_phase_kernel_matches_plain(cuda_device):
+    """The production QP size (nz=80, nc=63), k_stiff 8, a seeded random QP
+    batch built as in tests/test_qp_kernels.py: dz 1e-4 after a warm and a
+    stiff phase; an unaligned k_stiff raises on the card."""
+    from sdf_nmpc_tpu_torch.solver.qp import QpData, solve_qp
+
+    B, nz, nc = 64, 80, 63
+    A = RNG.normal(size=(B, nz, nz))
+    q = dict(H=np.einsum("bij,bkj->bik", A, A) + 10 * np.eye(nz),
+             g=RNG.normal(size=(B, nz)) * 2, C=RNG.normal(size=(B, nc, nz)),
+             c0=RNG.normal(size=(B, nc)), lh=np.full((B, nc), -0.1), uh=np.full((B, nc), 0.1),
+             z1=np.full((B, nc), 1e3), z2=np.full((B, nc), 1e4), lb=np.full((B, nz), -0.7),
+             ub=np.full((B, nz), 0.7))
+    qg = QpData(**{k: t32(v).to(cuda_device) for k, v in q.items()})
+    n0 = _count("ip_phase")
+    got = solve_qp(qg, iters=12, stiff_iters=4, k_stiff=8)
+    assert _count("ip_phase") == n0 + 2
+    want = solve_qp(QpData(*[t.cpu() for t in qg]), iters=12, stiff_iters=4, k_stiff=8)
+    torch.testing.assert_close(got.dz.cpu(), want.dz, atol=1e-4, rtol=0)
+    with pytest.raises(NotImplementedError):
+        solve_qp(qg, iters=12, stiff_iters=4, k_stiff=6)
