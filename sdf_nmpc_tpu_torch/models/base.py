@@ -36,7 +36,9 @@ class ModelSpec:
     lbu: np.ndarray
     ubu: np.ndarray
     formate_ref: Callable  # formate_ref(ref, n_extra) -> (yr, W) numpy
-    u_to_TRPYr: Optional[Callable] = None
+    u_to_acc: Optional[Callable] = None  # (x, u, p) -> body acceleration + yaw rate
+    u_to_TRPYr: Optional[Callable] = None  # (x, u, p) -> thrust, roll, pitch, yaw rate
+    u_to_props: Optional[Callable] = None  # (x, u, p) -> propeller speeds
     f_lanes: Optional[Callable] = None
     y_lanes: Optional[Callable] = None
     # limits the CUDA kernel's device functions read: (gamma, roll, pitch, wz)

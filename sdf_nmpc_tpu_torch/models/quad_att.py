@@ -118,6 +118,12 @@ def make_model(cfg) -> ModelSpec:
             out = out * layout.get_flag(p)[..., None]
         return out
 
+    def u_to_acc(x, u, p):
+        _, q, _ = _split(x)
+        W_R_B, W_a = _wrb_wa(q, u)
+        B_a = (W_R_B.transpose(-1, -2) @ W_a[..., None])[..., 0]
+        return torch.cat([B_a, _scaled(u)[3][..., None]], -1)
+
     def u_to_TRPYr(x, u, p):
         return torch.stack([u[..., 0] * lim.gamma * mass, u[..., 1] * lim.roll,
                             u[..., 2] * lim.pitch, u[..., 3] * lim.wz], -1)
@@ -143,6 +149,7 @@ def make_model(cfg) -> ModelSpec:
         lbu=np.array([0.0, -1.0, -1.0, -1.0]),
         ubu=np.array([1.0, 1.0, 1.0, 1.0]),
         formate_ref=formate_ref,
+        u_to_acc=u_to_acc,
         u_to_TRPYr=u_to_TRPYr,
         f_lanes=f_lanes,
         y_lanes=y_lanes,

@@ -15,8 +15,14 @@ best_m (B,), dz_tail_sum).
 
 On CUDA tensors ``ip_phase`` launches ``csrc/ip_phase.cu`` (f32 only, k_s a
 multiple of 8 with k_s <= nc, else it raises).  On CPU tensors it runs the
-plain version: solver/qp.py's iteration body line by line with
-``torch.linalg.cholesky`` / ``cholesky_solve``, in f32 or f64.
+plain version: solver/qp.py's iteration body line by line
+(``ip_iteration``) with ``torch.linalg.cholesky`` / ``cholesky_solve``, in
+f32 or f64.
+
+The start (``ip_init``, cold or from warm duals), the iteration body
+(``ip_iteration``) and the finish (``ip_finish``) are shared with the
+composed QP path of solver/qp.py, which runs the body with its Newton
+solves through kernels 5-8 (``ops.qp_kernels``) and refinement sweeps.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import ctypes
 
 import torch
 
-from . import _lib
+from . import _lib, qp_kernels
 
 BIG = 1e8  # stand-in for infinite bounds (solver/qp.py)
 
@@ -55,19 +61,92 @@ def _max_step(v, dv):
     return ratio.amin(-1)
 
 
-def _chol(A):
-    """Lower Cholesky factor; a failed factorization gives NaN (as in JAX)."""
-    L, info = torch.linalg.cholesky_ex(A)
-    return torch.where((info > 0)[:, None, None], torch.full_like(L, float("nan")), L)
+def _compl(data, w, dz, sl, su, ll, lu, gl, gu, nl, nu):
+    """Average complementarity (solver/qp.py ``_mu_of``), per scenario."""
+    lh, uh, lb, ub = data[4], data[5], data[8], data[9]
+    total = ((dz - lb) * nl).sum(-1) + ((ub - dz) * nu).sum(-1)
+    total = total + (((w + sl - lh) * ll).sum(-1) + ((uh + su - w) * lu).sum(-1)
+                     + (sl * gl).sum(-1) + (su * gu).sum(-1))
+    return total / (2 * dz.shape[-1] + 4 * sl.shape[-1])
 
 
-def _iteration_plain(data, state, k_s, it_idx, in_tail, c):
+def ip_init(H, g, C, c0, lh, uh, z1, z2, lb, ub, mu0, box_margin, consts, warm=None):
+    """(data, state) at the start of solver/qp.py's interior point.
+
+    warm=None: the cold init.  Else ``warm`` holds the previous tick's
+    (sl, su, lam_l, lam_u, gam_l, gam_u, nu_l, nu_u): the slacks are
+    re-feasibilized against the new rows, everything is floored strictly
+    positive and mu is their complementarity (solver/qp.py:252-268)."""
+    B = g.shape[0]
+    lh_c = torch.clamp(lh, min=-BIG)
+    uh_c = torch.clamp(uh, max=BIG)
+    data = tuple(t.contiguous() for t in (H, C, g, c0, lh_c, uh_c, z1, z2, lb, ub))
+    width = ub - lb
+    dz = torch.clamp(torch.zeros_like(lb), lb + box_margin * (1 + width),
+                     ub - box_margin * (1 + width))
+    w0 = c0 + _mv(C, dz)
+    if warm is None:
+        sl = torch.clamp(lh_c - w0, min=0.0) + 0.1
+        su = torch.clamp(w0 - uh_c, min=0.0) + 0.1
+        duals = (sl, su, mu0 / (w0 + sl - lh_c), mu0 / (uh_c + su - w0), mu0 / sl, mu0 / su,
+                 mu0 / (dz - lb), mu0 / (ub - dz))
+        mu = torch.full((B,), mu0, dtype=g.dtype, device=g.device)
+    else:
+        sl = torch.clamp(torch.maximum(warm[0], lh_c - w0 + 1e-6), min=consts["p_floor"])
+        su = torch.clamp(torch.maximum(warm[1], w0 - uh_c + 1e-6), min=consts["p_floor"])
+        duals = (sl, su) + tuple(torch.clamp(d, min=consts["d_floor"]) for d in warm[2:])
+        mu = torch.clamp(_compl(data, w0, dz, *duals), min=consts["mu_min"])
+    state = (dz, *duals, mu, dz.clone(),
+             torch.full((B,), float("inf"), dtype=g.dtype, device=g.device),
+             torch.zeros_like(dz))
+    return data, tuple(t.contiguous() for t in state)
+
+
+def _newton(A, rhs, Cs, d_s, kernels):
+    """(x_aff, solve_more) for the Newton matrix M = A + Cs' diag(d_s) Cs:
+    the predictor rhs (B, nz) solved and Woodbury-corrected, and a function
+    that solves more right-hand sides (B, nz) the same way.
+
+    kernels=False: plain torch, as solver/qp.py with chol_impl='xla' (kernel
+    4's plain version).  kernels=True: through the wrappers of kernels 5-8,
+    as chol_impl='pallas' (:425-488): kernels 7 and 8 when k % 8 == 0, else
+    kernels 5 and 6 with the Cs rows stacked under the rhs and the k x k T
+    factored and solved in torch."""
+    k = 0 if Cs is None else Cs.shape[1]
+    if k:
+        d_s_inv = torch.clamp(1.0 / torch.clamp(d_s, min=1e-30), max=1e30)
+    if kernels and k and k % 8 == 0:
+        X1, (L, Xs, Lt) = qp_kernels.stiff_factor_solve(
+            A, rhs[:, None].contiguous(), Cs, d_s_inv.contiguous())
+        return X1[:, 0], lambda r: qp_kernels.stiff_resolve(
+            L, Xs, Lt, Cs, r[:, None].contiguous())[:, 0]
+    if kernels:
+        factor_solve, solve = qp_kernels.factor_solve, qp_kernels.solve
+    else:
+        factor_solve, solve = qp_kernels.factor_solve_plain, qp_kernels.solve_plain
+    RHS1 = torch.cat([rhs[:, None], Cs], 1) if k else rhs[:, None]
+    X1, L = factor_solve(A, RHS1.contiguous())
+    more = lambda r: solve(L, r[:, None].contiguous())[:, 0]
+    if not k:
+        return X1[:, 0], more
+    Xs = X1[:, 1:]
+    Lt = qp_kernels.chol_plain(qp_kernels.woodbury_matrix(Cs, Xs, d_s_inv))
+
+    def wood(x):
+        return x - _mtv(Xs, torch.cholesky_solve(_mv(Cs, x)[..., None], Lt)[..., 0])
+
+    return wood(X1[:, 0]), lambda r: wood(more(r))
+
+
+def ip_iteration(data, state, k_s, it_idx, in_tail, c, kernels=False, ir_steps=0):
+    """One Mehrotra predictor-corrector iteration of solver/qp.py's body,
+    batch-first; every scalar of the JAX body is a (B,) tensor here.  The
+    Newton solves go through ``_newton`` (``kernels`` selects the route);
+    ``ir_steps`` refinement sweeps follow each solve (:490-503)."""
     H, C, g, c0, lh, uh, z1, z2, lb, ub = data
     dz, sl, su, lam_l, lam_u, gam_l, gam_u, nu_l, nu_u, mu, best_dz, best_m, dzs = state
     dtype = dz.dtype
     eps = torch.finfo(dtype).eps
-    nc = c0.shape[-1]
-    n_terms = 2 * dz.shape[-1] + 4 * nc
 
     w = c0 + _mv(C, dz)
     tl = torch.maximum(w + sl - lh, 4 * eps * (1.0 + w.abs() + sl))
@@ -92,10 +171,12 @@ def _iteration_plain(data, state, k_s, it_idx, in_tail, c):
     ql_raw, qu_raw = lam_l / tl, lam_u / tu
     pl_raw, pu_raw = gam_l / sl, gam_u / su
     ratio_cap = torch.full_like(sl, c["ratio_cap"])
+    Cs = d_s = None
     if k_s > 0:
         eta_raw = (ql_raw * (z2 + pl_raw) / (z2 + ql_raw + pl_raw)
                    + qu_raw * (z2 + pu_raw) / (z2 + qu_raw + pu_raw))
-        # top-k_s with ties to the lowest index (lax.top_k ordering)
+        # top-k_s with ties to the lowest index (lax.top_k ordering), kept
+        # in top-k order
         sidx = torch.sort(eta_raw, dim=-1, descending=True, stable=True).indices[:, :k_s]
         stiff = torch.zeros_like(sl, dtype=torch.bool).scatter(1, sidx, True)
         Cs = torch.gather(C, 1, sidx[..., None].expand(-1, -1, C.shape[-1]))
@@ -145,33 +226,23 @@ def _iteration_plain(data, state, k_s, it_idx, in_tail, c):
         dnu_u = (m_bu - nu_u * bu) / bu + rbu * ddz
         return ddz, dw, dsl, dsu, dlam_l, dlam_u, dgam_l, dgam_u, dnu_l, dnu_u
 
+    def m_apply(x):
+        """Exact Newton-matrix product (mild rows capped, stiff exact)."""
+        out = _mv(H, x) + rb * x + _mtv(C, eta_mild * _mv(C, x))
+        if k_s > 0:
+            out = out + _mtv(Cs, d_s * _mv(Cs, x))
+        return out
+
     zc, zz = torch.zeros_like(sl), torch.zeros_like(dz)
     aff_t = (zc, zc, zc, zc, zz, zz)
     rhs_aff = rhs_of(*aff_t)
 
     # one factor + multi-solve for [rhs_aff; Cs]; the corrector reuses it
-    L = _chol(A)
-    solve = lambda R: torch.cholesky_solve(R.transpose(-1, -2), L).transpose(-1, -2)
-    RHS1 = rhs_aff[:, None, :]
-    if k_s > 0:
-        RHS1 = torch.cat([RHS1, Cs], dim=1)
-    X1 = solve(RHS1)
-    if k_s > 0:
-        Xs = X1[:, 1:]
-        d_s_inv = torch.clamp(1.0 / torch.clamp(d_s, min=1e-30), max=1e30)
-        T = Cs @ Xs.transpose(-1, -2) + torch.diag_embed(d_s_inv)
-        diagT = torch.diagonal(T, dim1=-2, dim2=-1)
-        T = T + torch.diag_embed(10 * eps * (diagT.abs() + 1e-30))
-        Lt = _chol(T)
+    x_aff, solve_more = _newton(A, rhs_aff, Cs, d_s, kernels)
 
-        def woodbury(x):
-            y = torch.cholesky_solve(_mv(Cs, x)[..., None], Lt)[..., 0]
-            return x - _mtv(Xs, y)
-    else:
-        woodbury = lambda x: x
-
-    def finish(x_raw):
-        x = woodbury(x_raw)
+    def finish(x, rhs):
+        for _ in range(ir_steps):
+            x = x + solve_more(rhs - m_apply(x))
         ok = torch.isfinite(x).all(-1, keepdim=True)
         return torch.where(ok, x, torch.zeros_like(x))
 
@@ -195,20 +266,14 @@ def _iteration_plain(data, state, k_s, it_idx, in_tail, c):
         )
         return torch.clamp(frac * m, max=1.0)
 
-    def compl(w_, dz_, sl_, su_, ll_, lu_, gl_, gu_, nl_, nu__):
-        total = ((dz_ - lb) * nl_).sum(-1) + ((ub - dz_) * nu__).sum(-1)
-        total = total + (((w_ + sl_ - lh) * ll_).sum(-1) + ((uh + su_ - w_) * lu_).sum(-1)
-                         + (sl_ * gl_).sum(-1) + (su_ * gu_).sum(-1))
-        return total / n_terms
-
-    aff = recover(finish(X1[:, 0]), *aff_t)
+    aff = recover(finish(x_aff, rhs_aff), *aff_t)
     alpha_aff = step_len(aff, 1.0)[:, None]
     adz, adw, adsl, adsu, adll, adlu, adgl, adgu, adnl, adnu = aff
-    mu_cur = compl(w, dz, sl, su, lam_l, lam_u, gam_l, gam_u, nu_l, nu_u)
+    mu_cur = _compl(data, w, dz, sl, su, lam_l, lam_u, gam_l, gam_u, nu_l, nu_u)
     a = alpha_aff
-    mu_aff = compl(w + a * adw, dz + a * adz, sl + a * adsl, su + a * adsu,
-                   lam_l + a * adll, lam_u + a * adlu, gam_l + a * adgl, gam_u + a * adgu,
-                   nu_l + a * adnl, nu_u + a * adnu)
+    mu_aff = _compl(data, w + a * adw, dz + a * adz, sl + a * adsl, su + a * adsu,
+                    lam_l + a * adll, lam_u + a * adlu, gam_l + a * adgl, gam_u + a * adgu,
+                    nu_l + a * adnl, nu_u + a * adnu)
     sigma = torch.clamp((torch.clamp(mu_aff, min=0.0)
                          / torch.clamp(mu_cur, min=c["d_floor"])) ** 3, 1e-4, 1.0)
     mu_t = torch.clamp(sigma * mu_cur, min=c["mu_min"])[:, None]
@@ -216,7 +281,8 @@ def _iteration_plain(data, state, k_s, it_idx, in_tail, c):
     corr_t = (mu_t - adll * (adw + adsl), mu_t - adlu * (adsu - adw),
               mu_t - adgl * adsl, mu_t - adgu * adsu,
               mu_t - adnl * adz, mu_t + adnu * adz)
-    corr = recover(finish(solve(rhs_of(*corr_t)[:, None, :])[:, 0]), *corr_t)
+    rhs_c = rhs_of(*corr_t)
+    corr = recover(finish(solve_more(rhs_c), rhs_c), *corr_t)
     alpha = step_len(corr, c["tau"])[:, None]
     ddz, dw, dsl, dsu, dll, dlu, dgl, dgu, dnl, dnu = corr
 
@@ -229,20 +295,24 @@ def _iteration_plain(data, state, k_s, it_idx, in_tail, c):
     gam_u = torch.clamp(gam_u + alpha * dgu, min=c["d_floor"])
     nu_l = torch.clamp(nu_l + alpha * dnl, min=c["d_floor"])
     nu_u = torch.clamp(nu_u + alpha * dnu, min=c["d_floor"])
-    mu = torch.clamp(compl(w + alpha * dw, dz, sl, su, lam_l, lam_u, gam_l, gam_u, nu_l, nu_u),
-                     min=c["mu_min"])
+    mu = torch.clamp(_compl(data, w + alpha * dw, dz, sl, su, lam_l, lam_u, gam_l, gam_u,
+                            nu_l, nu_u), min=c["mu_min"])
     if in_tail:
         dzs = dzs + dz
     return (dz, sl, su, lam_l, lam_u, gam_l, gam_u, nu_l, nu_u, mu, best_dz, best_m, dzs)
 
 
+def run_phase(data, state, k_s, n_iters, it0, consts, n_tail=0, **body):
+    """n_iters iterations of the body from iteration it0, the last n_tail of
+    them summed into the tail; ``body``: ``ip_iteration``'s route options."""
+    for i in range(n_iters):
+        state = ip_iteration(data, state, k_s, it0 + i, i >= n_iters - n_tail, consts, **body)
+    return state
+
+
 def ip_phase_plain(data, state, k_s, n_iters, it0, consts, n_tail=0):
     """n_iters iterations of solver/qp.py's body; k_s is clamped to nc."""
-    k_s = min(k_s, data[3].shape[-1])
-    for i in range(n_iters):
-        state = _iteration_plain(data, state, k_s, it0 + i,
-                                 n_tail > 0 and i >= n_iters - n_tail, consts)
-    return state
+    return run_phase(data, state, min(k_s, data[3].shape[-1]), n_iters, it0, consts, n_tail)
 
 
 def _ip_phase_cuda(data, state, k_s, n_iters, it0, consts, n_tail=0):
@@ -282,60 +352,58 @@ def ip_phase(data, state, k_s, n_iters, it0, consts, n_tail=0):
     return ip_phase_plain(data, state, k_s, n_iters, it0, consts, n_tail)
 
 
+def ip_schedule(iters, n_warm, k_stiff, nc):
+    """([(k_s, n_iters, it0, n_tail), ...], n_tail): solver/qp.py's two-phase
+    schedule (:594-604), which both QP paths run.  n_warm iterations without
+    the stiff split, then the rest with k_s = min(k_stiff, nc) stiff rows;
+    the tail average takes the last min(8, n_stiff) stiff iterates, once
+    the stiff phase is long enough for an average."""
+    n_stiff = iters - n_warm
+    n_tail = min(8, n_stiff) if n_stiff >= 4 else 0
+    phases = [(0, n_warm, 0, 0)] if n_warm > 0 else []
+    if n_stiff > 0:
+        phases.append((min(k_stiff, nc), n_stiff, n_warm, n_tail))
+    return phases, n_tail
+
+
+def ip_finish(data, state, n_tail):
+    """(dz, kkt, mu, sl, su, lam_l, lam_u, gam_l, gam_u, nu_l, nu_u): the
+    final merit, the best-iterate choice, the tail average and the KKT
+    residual (solver/qp.py:605-639)."""
+    H, C, g, c0, lh_c, uh_c, z1, z2, lb, ub = data
+    dz, sl, su, lam_l, lam_u, gam_l, gam_u, nu_l, nu_u, mu, best_dz, best_m, dzs = state
+
+    def merit(z):
+        wz = c0 + _mv(C, z)
+        vl = torch.clamp(lh_c - wz, min=0.0)
+        vu = torch.clamp(wz - uh_c, min=0.0)
+        return (0.5 * (z * _mv(H, z)).sum(-1) + (g * z).sum(-1)
+                + (z1 * (vl + vu) + 0.5 * z2 * (vl ** 2 + vu ** 2)).sum(-1))
+
+    m_fin = merit(dz)
+    dz = torch.where((m_fin < best_m)[:, None], dz, best_dz)
+    if n_tail > 0:
+        dz_avg = dzs / n_tail
+        take_avg = merit(dz_avg) < torch.minimum(best_m, m_fin)
+        dz = torch.where(take_avg[:, None], dz_avg, dz)
+
+    lam_l_r = torch.minimum(lam_l, z1 + z2 * sl)
+    lam_u_r = torch.minimum(lam_u, z1 + z2 * su)
+    grad = _mv(H, dz) + g - _mtv(C, lam_l_r - lam_u_r)
+    kkt = (dz - torch.minimum(torch.maximum(dz - grad, lb), ub)).abs().amax(-1)
+    return dz, kkt, mu, sl, su, lam_l, lam_u, gam_l, gam_u, nu_l, nu_u
+
+
 def make_fused_solve(iters, n_warm, k_stiff, mu0, box_margin, ratio_cap_override=None):
     """run(H, g, C, c0, lh, uh, z1, z2, lb, ub) -> (dz, kkt, mu, sl, su, lam_l,
     lam_u, gam_l, gam_u, nu_l, nu_u) for one static configuration."""
 
     def run(H, g, C, c0, lh, uh, z1, z2, lb, ub):
         consts = ip_consts(g.dtype, ratio_cap_override)
-        B, nz = g.shape
-        lh_c = torch.clamp(lh, min=-BIG)
-        uh_c = torch.clamp(uh, max=BIG)
-
-        # cold init (solver/qp.py, warm_duals=None)
-        width = ub - lb
-        dz = torch.clamp(torch.zeros_like(lb), lb + box_margin * (1 + width),
-                         ub - box_margin * (1 + width))
-        w0 = c0 + _mv(C, dz)
-        sl = torch.clamp(lh_c - w0, min=0.0) + 0.1
-        su = torch.clamp(w0 - uh_c, min=0.0) + 0.1
-        state = (dz, sl, su, mu0 / (w0 + sl - lh_c), mu0 / (uh_c + su - w0), mu0 / sl,
-                 mu0 / su, mu0 / (dz - lb), mu0 / (ub - dz),
-                 torch.full((B,), mu0, dtype=g.dtype, device=g.device), dz.clone(),
-                 torch.full((B,), float("inf"), dtype=g.dtype, device=g.device),
-                 torch.zeros_like(dz))
-        data = (H, C, g, c0, lh_c, uh_c, z1, z2, lb, ub)
-        data = tuple(t.contiguous() for t in data)
-        state = tuple(t.contiguous() for t in state)
-
-        # tail-averaged-iterate window: the last min(8, n_stiff) stiff
-        # iterates, once the stiff phase is long enough for an average
-        n_stiff = iters - n_warm
-        n_tail = min(8, n_stiff) if n_stiff >= 4 else 0
-        if n_warm > 0:
-            state = ip_phase(data, state, 0, n_warm, 0, consts)
-        if n_stiff > 0:
-            state = ip_phase(data, state, k_stiff, n_stiff, n_warm, consts, n_tail)
-        dz, sl, su, lam_l, lam_u, gam_l, gam_u, nu_l, nu_u, mu, best_dz, best_m, dzs = state
-
-        def merit(z):
-            wz = c0 + _mv(C, z)
-            vl = torch.clamp(lh_c - wz, min=0.0)
-            vu = torch.clamp(wz - uh_c, min=0.0)
-            return (0.5 * (z * _mv(H, z)).sum(-1) + (g * z).sum(-1)
-                    + (z1 * (vl + vu) + 0.5 * z2 * (vl ** 2 + vu ** 2)).sum(-1))
-
-        m_fin = merit(dz)
-        dz = torch.where((m_fin < best_m)[:, None], dz, best_dz)
-        if n_tail > 0:
-            dz_avg = dzs / n_tail
-            take_avg = merit(dz_avg) < torch.minimum(best_m, m_fin)
-            dz = torch.where(take_avg[:, None], dz_avg, dz)
-
-        lam_l_r = torch.minimum(lam_l, z1 + z2 * sl)
-        lam_u_r = torch.minimum(lam_u, z1 + z2 * su)
-        grad = _mv(H, dz) + g - _mtv(C, lam_l_r - lam_u_r)
-        kkt = (dz - torch.minimum(torch.maximum(dz - grad, lb), ub)).abs().amax(-1)
-        return dz, kkt, mu, sl, su, lam_l, lam_u, gam_l, gam_u, nu_l, nu_u
+        data, state = ip_init(H, g, C, c0, lh, uh, z1, z2, lb, ub, mu0, box_margin, consts)
+        phases, n_tail = ip_schedule(iters, n_warm, k_stiff, c0.shape[-1])
+        for k_s, n_iters, it0, tail in phases:
+            state = ip_phase(data, state, k_s, n_iters, it0, consts, tail)
+        return ip_finish(data, state, n_tail)
 
     return run

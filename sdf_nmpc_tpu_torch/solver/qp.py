@@ -10,10 +10,22 @@ Problem, per scenario (leading batch axis B on every field):
 ``solve_qp`` runs a fixed iteration budget: ``n_warm`` iterations with the
 mild-row ratio cap only, then the last ``stiff_iters`` with the stiff-row
 Woodbury split, then the best-iterate / tail-average choice and the KKT
-residual.  Each phase is one ``ops.ip_kernel.ip_phase`` call: on CUDA tensors
-the hand-written kernel (f32), on CPU tensors its plain version (f32 or f64).
-Warm duals and iterative refinement belong to the composed QP path, which is
-not ported yet (ROADMAP.md), and raise.
+residual.  It takes one of two paths, chosen from the arguments and the
+shapes before anything runs, as solver/qp.py:144-199 chooses:
+
+* the fused path (``chol_impl`` 'auto' or 'fused', where the fused kernel
+  supports the problem: f32, no warm duals, no refinement, rows present and
+  a stiff split of a multiple of 8 rows, at most nc): each phase is one
+  ``ops.ip_kernel.ip_phase`` call (kernel 4);
+* the composed path (``chol_impl`` 'pallas', or anything the fused kernel
+  does not support): the iteration body runs in torch, one iteration at a
+  time, and its Newton solves go through kernels 5-8
+  (``ops.qp_kernels``): kernels 7 and 8 for a stiff split of a multiple of
+  8 rows, else kernels 5 and 6.  Warm duals, refinement sweeps, f64 and a
+  stiff split the fused kernel does not take go this way.
+
+On CUDA tensors the kernels run (f32); on CPU tensors their plain versions
+(f32 or f64).
 """
 
 from __future__ import annotations
@@ -22,7 +34,14 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.ip_kernel import make_fused_solve
+from ..ops.ip_kernel import (
+    ip_consts,
+    ip_finish,
+    ip_init,
+    ip_schedule,
+    make_fused_solve,
+    run_phase,
+)
 
 
 class QpData(NamedTuple):
@@ -56,21 +75,41 @@ class QpResult(NamedTuple):
     duals: QpDuals = None
 
 
+def _composed_solve(qp: QpData, iters, n_warm, k_stiff, mu0, box_margin, ratio_cap_override,
+                    warm_duals, ir_steps):
+    consts = ip_consts(qp.g.dtype, ratio_cap_override)
+    data, state = ip_init(qp.H, qp.g, qp.C, qp.c0, qp.lh, qp.uh, qp.z1, qp.z2, qp.lb, qp.ub,
+                          mu0, box_margin, consts, warm_duals)
+    phases, n_tail = ip_schedule(iters, n_warm, k_stiff, qp.c0.shape[-1])
+    for k_s, n_iters, it0, tail in phases:
+        state = run_phase(data, state, k_s, n_iters, it0, consts, tail, kernels=True,
+                          ir_steps=ir_steps)
+    return ip_finish(data, state, n_tail)
+
+
 def solve_qp(qp: QpData, iters: int = 8, mu0: float = 0.1, box_margin: float = 1e-6,
              k_stiff: int = 16, stiff_iters: int = None, ratio_cap_override: float = None,
-             warm_duals: QpDuals = None, ir_steps: int = 0) -> QpResult:
+             warm_duals: QpDuals = None, ir_steps: int = 0,
+             chol_impl: str = "auto") -> QpResult:
     """Solve a batch of condensed QPs with ``iters`` IP iterations."""
-    if warm_duals is not None or ir_steps:
-        raise NotImplementedError(
-            "warm duals and iterative refinement need the composed QP path "
-            "(kernels 5-8), which is queued in ROADMAP.md")
     nc = qp.c0.shape[-1]
     if nc == 0:
         raise NotImplementedError("a QP without general constraint rows is not ported")
+    if chol_impl not in ("auto", "fused", "pallas"):
+        raise NotImplementedError(
+            f"chol_impl={chol_impl!r} is not ported (only 'auto', 'fused' and 'pallas'; "
+            "see ROADMAP.md)")
     n_stiff = min(stiff_iters if stiff_iters is not None else iters, iters)
     n_warm = iters - n_stiff if k_stiff > 0 else iters
-    run = make_fused_solve(iters=iters, n_warm=n_warm, k_stiff=k_stiff, mu0=mu0,
-                           box_margin=box_margin, ratio_cap_override=ratio_cap_override)
-    dz, kkt, mu, *duals = run(qp.H, qp.g, qp.C, qp.c0, qp.lh, qp.uh, qp.z1, qp.z2,
-                              qp.lb, qp.ub)
+    fused = chol_impl != "pallas" and (
+        qp.g.dtype == torch.float32 and warm_duals is None and ir_steps == 0
+        and (n_stiff == 0 or (k_stiff % 8 == 0 and nc >= k_stiff)))
+    if fused:
+        run = make_fused_solve(iters=iters, n_warm=n_warm, k_stiff=k_stiff, mu0=mu0,
+                               box_margin=box_margin, ratio_cap_override=ratio_cap_override)
+        out = run(qp.H, qp.g, qp.C, qp.c0, qp.lh, qp.uh, qp.z1, qp.z2, qp.lb, qp.ub)
+    else:
+        out = _composed_solve(qp, iters, n_warm, k_stiff, mu0, box_margin, ratio_cap_override,
+                              warm_duals, ir_steps)
+    dz, kkt, mu, *duals = out
     return QpResult(dz=dz, kkt_residual=kkt, complementarity=mu, duals=QpDuals(*duals))

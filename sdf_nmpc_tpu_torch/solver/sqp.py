@@ -3,13 +3,20 @@
 Counterpart of sdf_nmpc_tpu/solver/sqp.py ``make_rti_step`` on the condensed
 backend.  The JAX step is single-scenario and reaches its kernels through
 ``custom_vmap`` rules; here every tensor carries the scenario axis first,
-(B, N+1, nx) and the like, and the step calls the four kernel wrappers
+(B, N+1, nx) and the like, and the step calls the kernel wrappers
 directly:
 
   1. ``ops.lin_kernels.lin_y_sens``   RK4 + A, B + stage residual + Jyx, Jyu
   2. ``ops.sdf_fused.sdf_value_grad`` NeuralDF value + position gradient
   3. ``ops.condense_kernel.condense`` condensing recursion + condensed rows
-  4. ``ops.ip_kernel.ip_phase``       (inside ``solve_qp``) two IP phases
+  4. ``ops.ip_kernel.ip_phase``       (inside ``solve_qp``) two IP phases, or
+  5-8. ``ops.qp_kernels``             (inside ``solve_qp``) the composed QP
+     path's Newton solves, one factor and one or more solves per iteration
+
+``solve_qp`` picks the fused kernel 4 or the composed path from the config
+(``chol_impl``, ``dual_warm_start``, ``ir_steps``, ``qp_stiff_k``), as the
+JAX step does.  With ``dual_warm_start`` the state carries the QP duals from
+tick to tick (acados' ``qp_solver_warm_start``).
 
 The FoV-row, ``yN`` and terminal ``hN`` Jacobians use ``torch.func``; the
 Gram H/g assembly is one ``torch.bmm``.  A non-finite update leaves the
@@ -103,13 +110,23 @@ class SolveResult(NamedTuple):
     evals: Optional[torch.Tensor]  # (B, N+1, neval) diagnostics or None
 
 
-def init_state(ocp: OcpSpec, x0, dtype=torch.float32) -> SolverState:
-    """Fill all nodes with x0 (B, nx) / u_hover, on the OCP's device."""
+def init_state(ocp: OcpSpec, x0, dtype=torch.float32,
+               dual_warm_start: bool = False) -> SolverState:
+    """Fill all nodes with x0 (B, nx) / u_hover, on the OCP's device.  With
+    dual_warm_start, also seed the QP duals the first tick starts from
+    (slacks 0.1, every dual 1)."""
     x0 = torch.as_tensor(x0, dtype=dtype, device=ocp.device)
     B = x0.shape[0]
     u_h = torch.as_tensor(ocp.u_hover, dtype=dtype, device=ocp.device)
+    duals = None
+    if dual_warm_start:
+        nc, nz = ocp.N * ocp.nh + ocp.nhN, ocp.N * ocp.nu
+        c1 = torch.full((B, nc), 0.1, dtype=dtype, device=ocp.device)
+        d1 = torch.ones((B, nc), dtype=dtype, device=ocp.device)
+        z1 = torch.ones((B, nz), dtype=dtype, device=ocp.device)
+        duals = QpDuals(sl=c1, su=c1, lam_l=d1, lam_u=d1, gam_l=d1, gam_u=d1, nu_l=z1, nu_u=z1)
     return SolverState(X=x0[:, None, :].expand(B, ocp.N + 1, ocp.nx).clone(),
-                       U=u_h.expand(B, ocp.N, ocp.nu).clone())
+                       U=u_h.expand(B, ocp.N, ocp.nu).clone(), qp_duals=duals)
 
 
 def shift_state(state: SolverState, k: int) -> SolverState:
@@ -153,17 +170,16 @@ def _check_supported(cfg, N):
         raise NotImplementedError(
             "only the condensed QP backend is ported; the Riccati backend is "
             "queued in ROADMAP.md")
-    unsupported = {
-        "dual_warm_start": bool(s.get("dual_warm_start", False)),
-        "ir_steps": int(s.get("ir_steps", 0)) != 0,
-        "qp_data_bf16": bool(s.get("qp_data_bf16", False)),
-        "qp_compute_dtype": s.get("qp_compute_dtype", None) is not None,
-    }
-    bad = [k for k, v in unsupported.items() if v]
+    # every knob the port reads: (default, the values it ports); any other
+    # value raises rather than being dropped
+    ported = {"chol_impl": ("auto", ("auto", "fused", "pallas")),
+              "lin_impl": ("auto", ("auto", "pallas")), "fused_sdf": (True, (True,)),
+              "qp_data_bf16": (False, (False,)), "qp_compute_dtype": (None, (None,))}
+    bad = {k: s.get(k, d) for k, (d, ok) in ported.items() if s.get(k, d) not in ok}
     if bad:
         raise NotImplementedError(
-            f"solver settings not ported: {bad} (the composed QP path with warm "
-            "duals and refinement is queued in ROADMAP.md)")
+            f"solver settings not ported: {bad} (the XLA and custom linear-algebra "
+            "routes and the numerics-attribution hooks are queued in ROADMAP.md)")
     if str(s.dtype) not in _DTYPES:
         raise ValueError(f"unsupported solver dtype {s.dtype!r}")
 
@@ -188,6 +204,9 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
     layout = ocp.layout
     kkt_tol = cfg.solver.get("kkt_tol", None)
     mu0, box_margin = float(cfg.solver.barrier_init), float(cfg.solver.box_margin)
+    dual_ws = bool(cfg.solver.get("dual_warm_start", False))
+    ir_steps = int(cfg.solver.get("ir_steps", 0))
+    chol_impl = str(cfg.solver.get("chol_impl", "auto"))
 
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
     dt = t(ocp.dt)
@@ -291,10 +310,12 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
             lb=(lbu - U).reshape(B, nz), ub=(ubu - U).reshape(B, nz),
         )
 
-        # ---- 4. QP: kernel 4, two phases ----
+        # ---- 4. QP: kernel 4 (two phases) or kernels 5-8 (composed) ----
         qp_res = solve_qp(qp, iters=qp_iters, mu0=mu0, box_margin=box_margin,
                           k_stiff=k_stiff, stiff_iters=stiff_iters,
-                          ratio_cap_override=ratio_cap)
+                          ratio_cap_override=ratio_cap,
+                          warm_duals=state.qp_duals if dual_ws else None,
+                          ir_steps=ir_steps, chol_impl=chol_impl)
         dz = qp_res.dz
 
         # ---- 5. linear trajectory update + NaN guard ----
@@ -310,7 +331,8 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
         X_new = torch.where(bad[:, None, None], X, X_new)
         evals = ocp.sdf_eval(X_new, p, net)[..., None] if with_evals else None
         return SolveResult(
-            state=SolverState(X=X_new, U=U_new, qp_duals=None),
+            state=SolverState(X=X_new, U=U_new,
+                              qp_duals=qp_res.duals if state.qp_duals is not None else None),
             u0=U_new[:, 0], status=status, kkt_residual=qp_res.kkt_residual,
             qp_complementarity=qp_res.complementarity, evals=evals)
 

@@ -19,3 +19,81 @@ def test_f32_plain_path_passes_ci_gate_on_goldens():
     g = acc.replay_gates(warm, steady)
     assert acc.ci_gate_ok(g["warm_mean"], g["warm_max"]), g
     assert acc.ci_gate_ok(g["steady_mean"], g["steady_max"]), g
+
+
+def _jax_dual_ws_replay(budgets):
+    """The JAX package's f32 step (CPU, its composed XLA path) on the dual
+    warm-start replay of utils/accuracy.py, once per budget: tick 0 cold
+    from the seeded duals, each later tick with the budget from the duals
+    the last left.  Returns {budget: the (16, 8) u0 errors against
+    warm_ref.npz}."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from sdf_nmpc_tpu.solver import SolveInputs, SolverState, init_state, make_rti_step
+    from sdf_nmpc_tpu.utils import accuracy as ja
+
+    cap = np.load(ja.WARM_NPZ)
+    cfg, ocp, layout = ja.build_setup(dict(dual_warm_start=True))
+    f32, N = jnp.float32, ocp.N
+    scen = ja.build_scenarios(cfg, ocp, layout)[:ja.WARM_SCEN]
+    rows = lambda i: np.stack([s[i] for s in scen])
+    yrs, Ws = rows(2), rows(3)
+    fixed = dict(yref=jnp.asarray(np.tile(yrs[:, None], (1, N, 1)), f32),
+                 W=jnp.asarray(np.tile(Ws[:, None], (1, N, 1)), f32),
+                 yrefN=jnp.asarray(yrs[:, :ocp.nyN], f32), WN=jnp.asarray(Ws[:, :ocp.nyN], f32),
+                 p=jnp.asarray(rows(1), f32))
+    steps = {b: jax.jit(jax.vmap(make_rti_step(ocp, cfg, with_evals=False, budget=b)))
+             for b in ("cold", *budgets)}
+    seeded = jax.vmap(lambda x: init_state(ocp, x, f32, dual_warm_start=True))(
+        jnp.asarray(cap["x0"][:, 0], f32)).qp_duals
+    out = {}
+    for budget in budgets:
+        duals, errs = seeded, []
+        for k in range(cap["x0"].shape[1]):
+            st = SolverState(X=jnp.asarray(cap["X"][:, k], f32),
+                             U=jnp.asarray(cap["U"][:, k], f32), qp_duals=duals)
+            res = steps["cold" if k == 0 else budget](
+                st, SolveInputs(x0=jnp.asarray(cap["x0"][:, k], f32), **fixed))
+            duals = res.state.qp_duals
+            assert (np.asarray(res.status) == 0).all()
+            errs.append(np.abs(np.asarray(res.u0, np.float64) - cap["u0_ref"][:, k]).max(1))
+        out[budget] = np.stack(errs, 1)
+    return out
+
+
+def test_f32_plain_path_dual_warm_start_on_goldens():
+    """The same workload with solver.dual_warm_start, through the composed
+    QP path (plain versions of kernels 5-8): the cold solve from the seeded
+    duals, and the replays carrying each scenario's duals from tick to tick.
+    The cold solve, the steady ticks and every warm tick but one meet the
+    JAX package's CI gate.  That one, scenario 11's first warm tick, stays
+    far from the f64 golden in the JAX package's own f32 step too; there
+    the port is held to the largest f32 reading on it (DWS_SHORT_TICK_MAX).
+    Every status OK."""
+    from sdf_nmpc_tpu_torch.utils import accuracy as acc
+
+    over = {"dual_warm_start": True}
+    cold = acc.check_accuracy(device="cpu", solver_over=over)
+    warm = acc.check_warm_accuracy(device="cpu", budget="warm", solver_over=over)
+    steady = acc.check_warm_accuracy(device="cpu", budget="steady", solver_over=over)
+    short = acc.DWS_SHORT_TICK
+    g = acc.replay_gates(warm, steady, exempt=short)
+    jerr = _jax_dual_ws_replay(("warm", "steady"))
+    jg = acc.replay_gates({"err": jerr["warm"]}, {"err": jerr["steady"]}, exempt=short)
+    print(f"dual warm start, f32 on the CPU: port cold mean {cold['u0_mean_err']:.3e} max "
+          f"{cold['u0_max_err']:.3e}; warm ticks but {short} port mean {g['warm_mean']:.3e} max "
+          f"{g['warm_max']:.3e}, JAX mean {jg['warm_mean']:.3e} max {jg['warm_max']:.3e}; "
+          f"tick {short} port {g['exempt_err']:.4e}, JAX {jg['exempt_err']:.4e}; steady ticks "
+          f"port mean {g['steady_mean']:.3e} max {g['steady_max']:.3e}, JAX mean "
+          f"{jg['steady_mean']:.3e} max {jg['steady_max']:.3e}")
+    assert cold["n_ok"] == cold["n_scen"] == 32
+    assert warm["n_ok"] == warm["n_solves"] == 128
+    assert steady["n_ok"] == steady["n_solves"] == 128
+    assert acc.ci_gate_ok(cold["u0_mean_err"], cold["u0_max_err"]), cold
+    assert acc.ci_gate_ok(g["steady_mean"], g["steady_max"]), g
+    assert acc.ci_gate_ok(g["warm_mean"], g["warm_max"]), g
+    assert acc.ci_gate_ok(jg["warm_mean"], jg["warm_max"]), jg
+    assert acc.CI_MAX < jg["exempt_err"] <= acc.DWS_SHORT_TICK_MAX, jg  # the JAX shortfall
+    assert g["exempt_err"] <= acc.DWS_SHORT_TICK_MAX, g

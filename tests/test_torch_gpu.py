@@ -1,4 +1,4 @@
-"""The port's four CUDA kernels against their plain PyTorch versions on the
+"""The port's CUDA kernels against their plain PyTorch versions on the
 card.  Every test here is marked ``gpu`` and skips without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs on a GPU
@@ -103,7 +103,8 @@ def test_condense_kernel_matches_plain(cuda_device):
 def test_ip_phase_kernel_matches_plain(cuda_device):
     """The production QP size (nz=80, nc=63), k_stiff 8, a seeded random QP
     batch built as in tests/test_qp_kernels.py: dz 1e-4 after a warm and a
-    stiff phase; an unaligned k_stiff raises on the card."""
+    stiff phase; an unaligned k_stiff takes the composed path (kernels 5
+    and 6, no ip_phase launch) and gives dz within 1e-4 too."""
     from sdf_nmpc_tpu_torch.solver.qp import QpData, solve_qp
 
     B, nz, nc = 64, 80, 63
@@ -119,5 +120,64 @@ def test_ip_phase_kernel_matches_plain(cuda_device):
     assert _count("ip_phase") == n0 + 2
     want = solve_qp(QpData(*[t.cpu() for t in qg]), iters=12, stiff_iters=4, k_stiff=8)
     torch.testing.assert_close(got.dz.cpu(), want.dz, atol=1e-4, rtol=0)
-    with pytest.raises(NotImplementedError):
-        solve_qp(qg, iters=12, stiff_iters=4, k_stiff=6)
+    n0, n5, n6 = _count("ip_phase"), _count("factor_solve"), _count("solve")
+    got = solve_qp(qg, iters=12, stiff_iters=4, k_stiff=6)
+    assert _count("ip_phase") == n0
+    assert _count("factor_solve") == n5 + 12 and _count("solve") == n6 + 12
+    want = solve_qp(QpData(*[t.cpu() for t in qg]), iters=12, stiff_iters=4, k_stiff=6)
+    torch.testing.assert_close(got.dz.cpu(), want.dz, atol=1e-4, rtol=0)
+
+
+def _spd_system(n, k, r, B=300):
+    """A seeded SPD batch with stiff rows as the interior point builds them:
+    A = G G' + 10 I, Cs rows, ds_inv = 1 / eta_s with eta_s in [1e2, 1e6]."""
+    G = RNG.normal(size=(B, n, n))
+    return dict(A=np.einsum("bij,bkj->bik", G, G) + 10 * np.eye(n),
+                RHS=RNG.normal(size=(B, r, n)), Cs=RNG.normal(size=(B, k, n)),
+                dsi=1.0 / 10.0 ** RNG.uniform(2, 6, size=(B, k)), R2=RNG.normal(size=(B, r, n)))
+
+
+def _rel(got, want):
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [1, 7])
+def test_factor_solve_and_solve_kernels_match_plain(cuda_device, r):
+    """Kernels 5 and 6 at n=80 on 300 seeded SPD systems, r=1 and r=7 rows:
+    X within 1e-4 and L within 1e-5 of their largest entries
+    (tests/test_torch_qp_kernels.py); L is zero above the diagonal."""
+    from sdf_nmpc_tpu_torch.ops.qp_kernels import factor_solve, factor_solve_plain, solve, solve_plain
+
+    s = {k: t32(v).to(cuda_device) for k, v in _spd_system(80, 8, r).items()}
+    n5, n6 = _count("factor_solve"), _count("solve")
+    X, L = factor_solve(s["A"], s["RHS"])
+    X2 = solve(L, s["R2"])
+    assert (_count("factor_solve"), _count("solve")) == (n5 + 1, n6 + 1)
+    Xp, Lp = factor_solve_plain(s["A"], s["RHS"])
+    assert _rel(X, Xp) < 1e-4 and _rel(L, Lp) < 1e-5
+    assert _rel(X2, solve_plain(Lp, s["R2"])) < 1e-4
+    assert bool((torch.triu(L, 1) == 0).all())
+
+
+@pytest.mark.gpu
+def test_stiff_factor_solve_and_resolve_kernels_match_plain(cuda_device):
+    """Kernels 7 and 8 at n=80, k=8, r=1 on 300 seeded systems: X and the
+    re-solve within 2e-3 of their largest entries (eta_s up to 1e6), Xs
+    1e-4, L 1e-5, Lt 1e-4 (tests/test_torch_qp_kernels.py)."""
+    from sdf_nmpc_tpu_torch.ops.qp_kernels import (
+        stiff_factor_solve,
+        stiff_factor_solve_plain,
+        stiff_resolve,
+        stiff_resolve_plain,
+    )
+
+    s = {k: t32(v).to(cuda_device) for k, v in _spd_system(80, 8, 1).items()}
+    n7, n8 = _count("stiff_factor_solve"), _count("stiff_resolve")
+    X, (L, Xs, Lt) = stiff_factor_solve(s["A"], s["RHS"], s["Cs"], s["dsi"])
+    X2 = stiff_resolve(L, Xs, Lt, s["Cs"], s["R2"])
+    assert (_count("stiff_factor_solve"), _count("stiff_resolve")) == (n7 + 1, n8 + 1)
+    Xp, (Lp, Xsp, Ltp) = stiff_factor_solve_plain(s["A"], s["RHS"], s["Cs"], s["dsi"])
+    assert _rel(X, Xp) < 2e-3 and _rel(Xs, Xsp) < 1e-4
+    assert _rel(L, Lp) < 1e-5 and _rel(Lt, Ltp) < 1e-4
+    assert _rel(X2, stiff_resolve_plain(Lp, Xsp, Ltp, s["Cs"], s["R2"])) < 2e-3

@@ -133,11 +133,12 @@ def test_plain_f64_matches_solve_qp_xla():
 
 
 def test_unsupported_settings_raise():
-    from sdf_nmpc_tpu_torch.solver.qp import QpData, QpDuals, solve_qp
+    """The linear-algebra routes of the JAX package that are not ported
+    ('xla', 'custom') raise and name ROADMAP.md; warm duals and refinement
+    take the composed path (tests/test_torch_qp_composed.py)."""
+    from sdf_nmpc_tpu_torch.solver.qp import QpData, solve_qp
 
     q = QpData(**{k: t64(v) for k, v in _qp(2, 8, 4).items()})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_qp(q, ir_steps=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_qp(q, warm_duals=QpDuals(*[q.c0] * 8))
-
+    for impl in ("xla", "custom"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            solve_qp(q, chol_impl=impl)

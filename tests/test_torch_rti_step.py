@@ -184,16 +184,45 @@ def test_init_and_shift_state_match_jax():
         np.testing.assert_array_equal(ts.U.numpy(), np.asarray(js.U))
 
 
-def test_unsupported_settings_raise():
+def _narrow_ocp():
     from sdf_nmpc_tpu_torch.ocp import build_ocp
-    from sdf_nmpc_tpu_torch.solver import make_rti_step
 
     module, variables = jax_net(size_latent=L)
     net = port_net(module, variables, dtype=torch.float32)
     _, tc = _configs()
-    ocp = build_ocp(tc, sdf=net, device="cpu")
-    for over in ({"qp_backend": "riccati"}, {"dual_warm_start": True}, {"ir_steps": 1}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_rti_step(ocp, tc.replace(solver=over))
+    return build_ocp(tc, sdf=net, device="cpu"), tc, net
+
+
+def test_unsupported_settings_raise():
+    from sdf_nmpc_tpu_torch.ocp import build_ocp
+    from sdf_nmpc_tpu_torch.solver import make_rti_step
+
+    ocp, tc, net = _narrow_ocp()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_rti_step(ocp, tc.replace(solver={"qp_backend": "riccati"}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_ocp(tc.replace(flags=dict(recursive_feasibility=True)), sdf=net, device="cpu")
+
+
+@pytest.mark.parametrize("over", [{"chol_impl": "xla"}, {"chol_impl": "custom"},
+                                  {"lin_impl": "xla"}, {"fused_sdf": False},
+                                  {"qp_data_bf16": True}])
+def test_unported_knob_values_raise(over):
+    """A solver knob the port reads either means what it means in the JAX
+    package or raises and names ROADMAP.md: none is read and dropped."""
+    from sdf_nmpc_tpu_torch.solver import make_rti_step
+
+    ocp, tc, _ = _narrow_ocp()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_rti_step(ocp, tc.replace(solver=over))
+
+
+@pytest.mark.parametrize("over", [{"dual_warm_start": True}, {"ir_steps": 1},
+                                  {"qp_stiff_k": 6}, {"chol_impl": "pallas"},
+                                  {"chol_impl": "fused"}])
+def test_composed_path_settings_build(over):
+    """The settings that take the composed QP path build a step."""
+    from sdf_nmpc_tpu_torch.solver import make_rti_step
+
+    ocp, tc, _ = _narrow_ocp()
+    assert callable(make_rti_step(ocp, tc.replace(solver=over)))

@@ -1,5 +1,11 @@
 """The port's msgpack reader and NeuralDF against flax (f64 forward)."""
 
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -9,6 +15,7 @@ import torch
 from _torch_port import jax_net, port_net, t64
 
 RNG = np.random.default_rng(5)
+REPO = Path(__file__).resolve().parents[1]
 
 
 def _leaves(tree, prefix=""):
@@ -50,24 +57,67 @@ def test_msgpack_reader_roundtrips_flax_serialize():
         np.testing.assert_array_equal(np.asarray(vg), np.asarray(vw), err_msg=kg)
 
 
-def test_trained_net_forward_matches_flax_f64():
+# Both forwards of the trained net, in a fresh interpreter with one thread
+# per library and no persistent compilation cache: nothing that an earlier
+# test of the same worker process set, no thread-count-dependent path and no
+# executable compiled by another process can reach them.  Each side runs twice
+# and reports the exact sum of the weights it holds, so that a failure says
+# which side moved.
+_TRAINED_FORWARD = """
+import json, math, sys
+import numpy as np
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_enable_compilation_cache", False)
+import jax.numpy as jnp
+import torch
+torch.set_num_threads(1)
+from sdf_nmpc_tpu.nn.weights import load_prod_sdf as jload
+from sdf_nmpc_tpu_torch.nn.weights import load_prod_sdf
+
+x = np.load(sys.argv[1])
+module, variables = jload()
+net = load_prod_sdf(device="cpu").double()
+v64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables)
+want = [np.asarray(module.apply(v64, jnp.asarray(x))) for _ in range(2)]
+got = [net(torch.as_tensor(x)).detach().numpy() for _ in range(2)]
+fsum = lambda arrays: math.fsum(float(v) for a in arrays for v in np.ravel(a))
+np.savez(sys.argv[2], got=got[0], want=want[0])
+print(json.dumps({
+    "port_repeat_max_diff": float(np.abs(got[1] - got[0]).max()),
+    "flax_repeat_max_diff": float(np.abs(want[1] - want[0]).max()),
+    "port_weight_sum": fsum(p.detach().numpy() for p in net.state_dict().values()),
+    "flax_weight_sum": fsum(jax.tree.leaves(v64)),
+    "x64": bool(jax.config.jax_enable_x64), "flax_dtype": str(want[0].dtype),
+    "port_dtype": str(got[0].dtype), "torch_threads": torch.get_num_threads(),
+    "port_net": [net.w0, net.embed, net.size_latent, list(net.layer_sizes)],
+}))
+"""
+
+
+def test_trained_net_forward_matches_flax_f64(tmp_path):
     """The trained 4x256 NeuralDF (oct embedding, w0=20) on a few hundred
     points; f64 on both sides, so 1e-10 covers only summation order."""
-    from sdf_nmpc_tpu.nn.weights import load_prod_sdf as jload
-    from sdf_nmpc_tpu_torch.nn.weights import load_prod_latents, load_prod_sdf
+    from sdf_nmpc_tpu_torch.nn.weights import load_prod_latents
 
-    module, variables = jload()
-    net = load_prod_sdf(device="cpu").double()
     lat = load_prod_latents()
     n = 300
     pos = RNG.normal(size=(n, 3)) * 1.5
     x = np.concatenate([pos, lat[RNG.integers(0, lat.shape[0], n)].astype(np.float64)], -1)
-    v64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables)
-    want = np.asarray(module.apply(v64, jnp.asarray(x)))
-    got = net(t64(x)).detach().numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-10)
-    assert (net.w0, net.embed, net.size_latent, net.layer_sizes) == (
-        20.0, "oct", 128, (256, 256, 256, 256))
+    np.save(tmp_path / "x.npy", x)
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1",
+           "XLA_FLAGS": "--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1",
+           "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", _TRAINED_FORWARD, str(tmp_path / "x.npy"),
+                           str(tmp_path / "out.npz")], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    info = json.loads(proc.stdout.strip().splitlines()[-1])
+    out = np.load(tmp_path / "out.npz")
+    np.testing.assert_allclose(out["got"], out["want"], rtol=1e-10, atol=1e-10,
+                               err_msg=json.dumps(info))
+    assert info["port_net"] == [20.0, "oct", 128, [256, 256, 256, 256]]
 
 
 @pytest.mark.parametrize("act", ["sin", "relu", "softplus"])
