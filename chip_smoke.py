@@ -8,8 +8,11 @@ of weights/, FoV rows, the condensed QP with nz=80, nc=63) run through
 ``sdf_nmpc_tpu_torch``'s public entry points: the fused path (kernels 1-4,
 the default solver settings) and the composed QP path with
 ``solver.dual_warm_start`` (kernels 1-3 and 5-8), the latter also through
-the ``Nmpc`` controller at B=1 and ``make_batched_step``.  Phases, in
-order; any failure raises and exits non-zero before the result line:
+the ``Nmpc`` controller at B=1 and ``make_batched_step``.  Then the same OCP
+on the other five quad families with the default settings: rates, wrench
+and props through kernel 9 (their residual rows by ``torch.func``), acc
+and att_tau through kernel 1, each with kernels 2-4.  Phases, in order; any
+failure raises and exits non-zero before the result line:
 
 1. card: ``nvidia-smi`` name and power limit;
 2. build: the kernels from ``sdf_nmpc_tpu_torch/csrc`` (nvcc, ctypes), with
@@ -38,10 +41,26 @@ order; any failure raises and exits non-zero before the result line:
    the predicted next state: the cold -> warm -> steady promotion, no
    failure, clipped finite commands, per-tick latency;
 10. ``make_batched_step`` once at B=8192: BatchStats against a reduction of
-   the results.
+   the results;
+11. kernel checks, per family: kernel 9 (rates, wrench, props) or kernel 1
+   (acc, att_tau), kernel 2 and kernel 3 against their plain versions on
+   the inputs one cold step gives them at B=1024, the family's scenarios
+   tiled and jittered as in phase 3, each reading beside the plain f32
+   version's distance to f64;
+12. accuracy, per family: its 8 cold scenarios against the independent
+   oracle (tests/golden/oracle_u0.npz), and the warm / steady replays of
+   warm_ref_<model>.npz, with the named ticks of accuracy.SHORT_TICKS;
+13. main path, per family: as phase 6 at B=8192, its busy share, and
+   kernel 9's (or 1's) time, bound and plain time on a steady step's
+   inputs, beside the time of the torch.func residual rows (kernel 9 only);
+14. the ``Nmpc`` controller at B=1 on props, default settings, 15 ticks:
+   promotion, no failure, clipped finite ``get_cmd_props``, kernel 9
+   launched and kernel 1 not.
 
-The last lines are the ``kernels`` JSON (all eight kernels), the card's
-name and power limit, and ``{"ok": true, "device": {...}}``.
+The last lines are the ``kernels`` JSON (all nine kernels; the rows of
+kernels 1 and 9 carry each model's numbers under ``per_model``, and at top
+level att's and props'), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -59,7 +78,10 @@ CHECK_B = 1024  # scenarios of the kernel checks (phase 3)
 MAIN_B = 8192  # scenarios of the main path (phase 5), as bench.py
 N_STEADY = 20  # chained steady steps of the main path
 PROFILE_STEPS = 3  # profiled steady steps (phase 6)
-PER_STEP = {"lin_y_sens": 1, "sdf_fused": 1, "condense": 1, "ip_phase": 2}
+PER_STEP = {"lin_y_sens": 1, "erk4_sens": 0, "sdf_fused": 1, "condense": 1, "ip_phase": 2}
+ERK4_FAMILIES = ("rates", "wrench", "props")  # kernel 9
+LIN_FAMILIES = ("acc", "att_tau")  # kernel 1, as att
+NMPC_TICKS_PROPS = 15
 # composed path with dual_warm_start: one launch of kernel 5 and 6 per warm
 # IP iteration, of kernel 7 and 8 per stiff one; (warm, stiff) iterations
 # of the cold (20 / 8 stiff) and steady (15 / 4 stiff) budgets
@@ -81,7 +103,9 @@ COMPOSED_KERNELS = {
     "stiff_factor_solve": (QP_SRC, "sdf_nmpc_tpu/ops/qp_kernels.py:311"),
     "stiff_resolve": (QP_SRC, "sdf_nmpc_tpu/ops/qp_kernels.py:338"),
 }
-KERNELS = {**FUSED_KERNELS, **COMPOSED_KERNELS}
+KERNELS = {**FUSED_KERNELS, **COMPOSED_KERNELS,
+           "erk4_sens": ("sdf_nmpc_tpu_torch/csrc/erk4_sens.cu",
+                         "sdf_nmpc_tpu/ops/lin_kernels.py:49")}
 # Stated tolerances of kernel against plain version, per output:
 #  lin: A, B at 1e-4 and the y sweep at 2e-4 (tests/test_ops.py); the kernel
 #       runs the algebraic cos/sin-of-atan2 form, the plain version atan2.
@@ -111,6 +135,9 @@ KERNELS = {**FUSED_KERNELS, **COMPOSED_KERNELS}
 #       the scenarios of one workload, with a max of 6.6e-3 and 1.8e-2.
 #  Each rule: (threshold, largest share beyond it, largest median, largest max).
 LIN_TOL = (1e-4, 1e-4, 1e-4, 2e-4, 1e-4, 1e-4)
+#  erk4 (kernel 9): per output (x+, A, B), max |kernel - plain| at most 1e-4
+#       (1 + max |plain|): props' B reaches ~14 through its wp^2 terms.
+ERK4_TOL = 1e-4
 SDF_TOL = (2e-4, 2e-3)
 COND_ATOL = COND_RTOL = 1e-5
 IP_RULE = (1e-4, 0.01, 1e-5, 1e-2)
@@ -145,12 +172,16 @@ QP_RULE = (1e-4, 0.02, 2.0, 4.0, 1e-7)  # (threshold, share, median x, max x, fl
 # The card is held to the JAX package's CI gate on the dual-warm-start
 # replays, cold, steady and warm ticks, but for one warm tick (scenario 11,
 # tick 1) that the JAX package's own f32 step leaves at 1.392e-2
-# (tests/test_torch_accuracy.py); that tick is held to
-# accuracy.DWS_SHORT_TICK_MAX, the largest f32 reading on it.
+# (tests/test_torch_accuracy.py); that tick is held to its limit in
+# accuracy.SHORT_TICKS, the largest f32 reading on it.  So is props'
+# scenario 14, tick 1 with the default settings.
 # FP32 (non-tensor-core) peak and memory rate per part, at its full power
 # limit (NVIDIA data sheets); the SXM part is the default.
 PEAKS = {"PCIe": (51e12, 2.0e12), "NVL": (60e12, 3.9e12), "SXM": (67e12, 3.35e12)}
-LIN_OPS_PER_POINT = 15_000  # hand count: primal RK4 + y, 14 dual-number sweeps
+# the torch ops whose output elements count as arithmetic operations in
+# ops_per_point (a sum: its input elements less its output elements)
+ARITH_OPS = {"add", "sub", "rsub", "mul", "div", "neg", "pow", "rsqrt", "sqrt", "sin", "cos",
+             "atan2", "asin", "clamp", "clamp_min", "clamp_max", "maximum", "minimum", "sum"}
 
 
 def log(msg: str):
@@ -176,6 +207,7 @@ class Capture:
         from sdf_nmpc_tpu_torch.solver import sqp
 
         self.targets = {"lin_y_sens": (lin_kernels, "lin_y_sens"),
+                        "erk4_sens": (lin_kernels, "erk4_sens"),
                         "sdf_fused": (sdf_fused, "sdf_value_grad"),
                         "condense": (condense_kernel, "condense"),
                         "ip_phase": (ip_kernel, "ip_phase"),
@@ -351,12 +383,35 @@ def check_lin(args) -> float:
 
     got = lin_kernels.lin_y_sens(*args)
     want = lin_kernels.lin_y_sens_plain(args[0], *args[2:])
+    ref64 = lin_kernels.lin_y_sens_plain(args[0], *[a.double() for a in args[2:]])
     errs = [max_abs(g, w) for g, w in zip(got, want)]
-    log(f"  lin_y_sens  max err per output {['%.2e' % e for e in errs]} tol {LIN_TOL}")
+    d64 = [max_abs(w, r) for w, r in zip(want, ref64)]
+    log(f"  lin_y_sens  {args[0].name}: max err per output {['%.2e' % e for e in errs]} tol "
+        f"{LIN_TOL}; plain f32 vs f64 {['%.2e' % e for e in d64]}")
     bad = [i for i, (e, t) in enumerate(zip(errs, LIN_TOL)) if not e <= t]
     if bad:
         raise AssertionError(f"lin_y_sens disagrees with its plain version on outputs {bad}")
     return max(errs)
+
+
+def check_erk4(args) -> float:
+    """Kernel 9 against its plain version, per output within ERK4_TOL (1 +
+    max |plain|), beside the plain f32 version's distance to f64."""
+    from sdf_nmpc_tpu_torch.ops import lin_kernels
+
+    model = args[0]
+    got = lin_kernels.erk4_sens(*args)
+    want = lin_kernels.erk4_sens_plain(*args)
+    ref64 = lin_kernels.erk4_sens_plain(model, *[a.double() for a in args[1:]])
+    errs, rows = [], []
+    for name, g, w, r in zip(("x+", "A", "B"), got, want, ref64):
+        e, lim = max_abs(g, w), ERK4_TOL * (1 + float(w.abs().max()))
+        errs.append((e, lim))
+        rows.append(f"{name} {e:.2e} (tol {lim:.2e}; plain f32 vs f64 {max_abs(w, r):.2e})")
+    log(f"  erk4_sens   {model.name}: max err {', '.join(rows)}")
+    if not all(e <= lim for e, lim in errs):
+        raise AssertionError(f"erk4_sens ({model.name}) disagrees with its plain version")
+    return max(e for e, _ in errs)
 
 
 def check_sdf(args) -> float:
@@ -662,13 +717,66 @@ def random_qp(B, nz, nc, seed, device):
 # ------------------------------------------------------- bytes and operations
 
 
+def ops_per_point(fn, *args) -> float:
+    """Arithmetic operations per point of fn on (M, k) inputs: the output
+    elements of each elementwise torch op it runs (ARITH_OPS; a sum counts
+    its input elements less its output elements), over M."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, a=(), kw=None):
+            out = func(*a, **(kw or {}))
+            name = func.overloadpacket.__name__
+            if name in ARITH_OPS:
+                self.n += a[0].numel() - out.numel() if name == "sum" else out.numel()
+            return out
+
+    with Count() as c:
+        fn(*args)
+    return c.n / args[0].shape[0]
+
+
+_PRIMAL_OPS = {}
+
+
+def primal_ops(model, nx, with_y) -> float:
+    """Operations per point of one primal RK4 step of the model's f_lanes
+    (plus its y_lanes), counted on 64 CPU points."""
+    from sdf_nmpc_tpu_torch.solver.integrator import erk4
+
+    key = (model.name, with_y)
+    if key not in _PRIMAL_OPS:
+        X, U = torch.ones(64, nx), torch.full((64, 4), 0.5)
+        dt, qd = torch.full((64, 1), 0.1), torch.ones(64, 4)
+        ops = ops_per_point(lambda x, u, d: erk4(model.f_lanes, x, u, d), X, U, dt)
+        _PRIMAL_OPS[key] = ops + (ops_per_point(model.y_lanes, X, U, qd) if with_y else 0.0)
+    return _PRIMAL_OPS[key]
+
+
+def lin_ops(model, nx, nu, with_y):
+    """The least operations of the linearization per point: the primal, and
+    at least as many again for each of the nx + nu tangent sweeps (every op
+    has a tangent rule of one op or more)."""
+    return primal_ops(model, nx, with_y) * (1 + nx + nu)
+
+
 def lin_cost(args):
-    _, layout, X, U, dt, P, yref = args
+    model, layout, X, U, dt, P, yref = args
     M, nx = X.shape
     nu, ny = U.shape[1], yref.shape[1]
     read = nbytes(X, U, dt, yref) + M * len(layout.q_d) * 4
     written = M * (nx + nx * nx + nx * nu + ny + ny * nx + ny * nu) * 4
-    return LIN_OPS_PER_POINT * M, read + written
+    return lin_ops(model, nx, nu, True) * M, read + written
+
+
+def erk4_cost(args):
+    model, X, U, dt = args
+    M, nx = X.shape
+    nu = U.shape[1]
+    written = M * (nx + nx * nx + nx * nu) * 4
+    return lin_ops(model, nx, nu, False) * M, nbytes(X, U, dt) + written
 
 
 def sdf_cost(args):
@@ -850,7 +958,7 @@ def phase_accuracy(dev):
         steady = acc.check_warm_accuracy(device=dev, budget="steady", solver_over=over)
         # with dual_warm_start, the one warm tick the JAX package's f32 step
         # leaves beyond the CI gate is held on its own (see accuracy.py)
-        short = acc.DWS_SHORT_TICK if over else None
+        short, limit = acc.short_tick("att", dual_warm_start=bool(over))
         g = acc.replay_gates(warm, steady, exempt=short)
         rows = (("cold", cold["u0_mean_err"], cold["u0_max_err"], cold["n_ok"], cold["n_scen"]),
                 ("warm" if short is None else f"warm but scenario/tick {short}", g["warm_mean"],
@@ -861,10 +969,10 @@ def phase_accuracy(dev):
             log(f"accuracy {label} {name}: u0 mean {mean:.3e} max {mx:.3e}, {n_ok}/{n} status "
                 f"OK, CI gate {'pass' if acc.ci_gate_ok(mean, mx) else 'FAIL'}, "
                 f"strict <= {acc.CONTRACT_MAX}: {'pass' if mx <= acc.CONTRACT_MAX else 'miss'}")
-        short_ok = short is None or g["exempt_err"] <= acc.DWS_SHORT_TICK_MAX
+        short_ok = short is None or g["exempt_err"] <= limit
         if short is not None:
             log(f"accuracy {label} warm scenario/tick {short}: u0 err {g['exempt_err']:.4e}, "
-                f"limit {acc.DWS_SHORT_TICK_MAX:g}: {'pass' if short_ok else 'FAIL'}")
+                f"limit {limit:g}: {'pass' if short_ok else 'FAIL'}")
         report[label] = {"accuracy_ok": all(r[2] <= acc.CONTRACT_MAX for r in rows),
                          "u0_max_err": cold["u0_max_err"], "u0_mean_err": cold["u0_mean_err"],
                          "u0_warm_max_err": g["warm_max"], "u0_steady_max_err": g["steady_max"]}
@@ -876,16 +984,16 @@ def phase_accuracy(dev):
     log(json.dumps(report))
 
 
-def phase_main_path(dev, card, over=None, per_step=None, label="fused path"):
+def phase_main_path(dev, card, over=None, per_step=None, label="fused path", model=None):
     """B=MAIN_B, one cold step then N_STEADY chained steady steps ended by
     one synchronize, launch counts set to 0 just before and read just
     after.  ``over``: solver overrides; ``per_step(steps)``: the launch
-    count each kernel must reach."""
+    count each kernel must reach; ``model``: a quad family other than att."""
     from sdf_nmpc_tpu_torch.ops import _lib
     from sdf_nmpc_tpu_torch.solver import init_state, make_rti_step
     from sdf_nmpc_tpu_torch.utils import accuracy
 
-    cfg, ocp, layout, _ = accuracy.build_setup(device=dev, solver_over=over)
+    cfg, ocp, layout, _ = accuracy.build_setup(device=dev, solver_over=over, model=model)
     inputs = bench_inputs(ocp, cfg, layout, MAIN_B, SEED, dev)
     cold = make_rti_step(ocp, cfg, budget="cold", with_evals=False)
     steady = make_rti_step(ocp, cfg, budget="steady", with_evals=False)
@@ -951,11 +1059,23 @@ def fused_per_step(steps):
     return {name: per * steps for name, per in PER_STEP.items()}
 
 
+def family_per_step(model):
+    """The fused path's launches, kernel 9 in place of kernel 1 for the
+    families without a component-form residual; no composed-path launch."""
+    def per_step(steps):
+        counts = fused_per_step(steps)
+        if model in ERK4_FAMILIES:
+            counts["lin_y_sens"], counts["erk4_sens"] = 0, steps
+        return {**counts, **{name: 0 for name in COMPOSED_KERNELS}}
+    return per_step
+
+
 def composed_per_step(steps):
     """Kernels 1-3 once a step; kernels 5-8 as COMPOSED_ITERS, no kernel 4."""
     (cw, cs), (sw, ss) = COMPOSED_ITERS["cold"], COMPOSED_ITERS["steady"]
     n = steps - 1  # steady steps after the cold one
-    return {"lin_y_sens": steps, "sdf_fused": steps, "condense": steps, "ip_phase": 0,
+    return {"lin_y_sens": steps, "erk4_sens": 0, "sdf_fused": steps, "condense": steps,
+            "ip_phase": 0,
             "factor_solve": cw + n * sw, "solve": cw + n * sw,
             "stiff_factor_solve": cs + n * ss, "stiff_resolve": cs + n * ss}
 
@@ -1065,16 +1185,17 @@ def phase_profile(steady, state, inputs, t_step, card, label="fused path"):
         f"{other:.3f} ms per step; card {card}")
 
 
-def phase_nmpc(dev, card, ticks=31):
-    """The Nmpc controller at B=1 with dual_warm_start, the trained SDF and
-    a latent, RefGen waypoints, each tick fed the predicted next state."""
+def phase_nmpc(dev, card, ticks=31, model=None, over=DWS):
+    """The Nmpc controller at B=1 (att with dual_warm_start, or ``model``
+    with ``over``), the trained SDF and a latent, RefGen waypoints, each
+    tick fed the predicted next state."""
     from sdf_nmpc_tpu_torch.controller import Nmpc
     from sdf_nmpc_tpu_torch.nn.weights import load_prod_latents
     from sdf_nmpc_tpu_torch.ops import _lib
     from sdf_nmpc_tpu_torch.ref_gen import RefGen, Waypoint
     from sdf_nmpc_tpu_torch.utils import accuracy
 
-    cfg, ocp, _, _ = accuracy.build_setup(device=dev, solver_over=DWS)
+    cfg, ocp, _, _ = accuracy.build_setup(device=dev, solver_over=over, model=model)
     nmpc, gen = Nmpc(cfg, ocp=ocp), RefGen(cfg)
     latent = load_prod_latents()[0]
     x = np.zeros(ocp.nx)
@@ -1090,28 +1211,37 @@ def phase_nmpc(dev, card, ticks=31):
         budgets.append(nmpc.budget)
         fails.append(nmpc.solve())
         times.append(nmpc.get_t())
-        for cmd, lo, hi in ((nmpc.get_cmd_TRPYr(), nmpc.cmd_TRPYr_min, nmpc.cmd_TRPYr_max),
-                            (nmpc.get_cmd_acc(), nmpc.cmd_acc_min, nmpc.cmd_acc_max)):
+        cmds = ([(nmpc.get_cmd_props(), nmpc.cmd_props_min, nmpc.cmd_props_max)]
+                if model == "props" else
+                [(nmpc.get_cmd_TRPYr(), nmpc.cmd_TRPYr_min, nmpc.cmd_TRPYr_max),
+                 (nmpc.get_cmd_acc(), nmpc.cmd_acc_min, nmpc.cmd_acc_max)])
+        for cmd, lo, hi in cmds:
             if not (np.isfinite(cmd).all() and (cmd >= lo).all() and (cmd <= hi).all()):
                 raise AssertionError(f"Nmpc: command {cmd} not finite or outside [{lo}, {hi}]")
         x = nmpc.get_matrices()[0][1]  # the plant follows the prediction
     counts = dict(_lib.launch_counts)
     ms = np.asarray(times[1:]) * 1e3
-    log(f"Nmpc, B=1, dual warm start, {ticks} ticks: budgets {budgets[:6]}... "
+    dws = bool(cfg.solver.get("dual_warm_start", False))
+    label = f"Nmpc, {model or 'att'}, B=1, {'dual warm start' if dws else 'default settings'}"
+    log(f"{label}, {ticks} ticks: budgets {budgets[:6]}... "
         f"({budgets.count('cold')} cold, {budgets.count('warm')} warm, "
         f"{budgets.count('steady')} steady); fail counts {sorted(set(fails))}; last u "
         f"{np.round(nmpc.get_u(), 4).tolist()}; launches {counts}")
-    log(f"Nmpc per-tick latency over ticks 2-{ticks}: median {np.median(ms):.3f} ms, p99 "
+    log(f"{label}, per-tick latency over ticks 2-{ticks}: median {np.median(ms):.3f} ms, p99 "
         f"{np.percentile(ms, 99):.3f} ms (min {ms.min():.3f}, max {ms.max():.3f}); first tick "
         f"{times[0] * 1e3:.3f} ms; card {card}")
     if budgets[:5] != ["cold", "warm", "warm", "warm", "steady"] or set(budgets[5:]) != {"steady"}:
         raise AssertionError(f"Nmpc: budget promotion {budgets}")
     if any(fails):
         raise AssertionError(f"Nmpc: fail counts {fails}")
-    missing = [k for k in ("lin_y_sens", "sdf_fused", "condense", *COMPOSED_KERNELS)
-               if not counts[k]]
-    if missing or counts["ip_phase"]:
-        raise AssertionError(f"Nmpc: kernels not launched {missing}, or ip_phase launched")
+    lin, other = (("erk4_sens", "lin_y_sens") if model in ERK4_FAMILIES
+                  else ("lin_y_sens", "erk4_sens"))
+    qp = list(COMPOSED_KERNELS) if dws else ["ip_phase"]
+    unused = ["ip_phase"] if dws else list(COMPOSED_KERNELS)
+    missing = [k for k in (lin, "sdf_fused", "condense", *qp) if not counts[k]]
+    extra = [k for k in (other, *unused) if counts[k]]
+    if missing or extra:
+        raise AssertionError(f"{label}: kernels not launched {missing}, or launched {extra}")
 
 
 def phase_batched(dev, card):
@@ -1144,6 +1274,139 @@ def phase_batched(dev, card):
         raise AssertionError("make_batched_step: scenarios failed or the composed path was not run")
 
 
+def phase_family_checks(dev, model):
+    """Kernel 9 (or 1), kernel 2 and kernel 3 against their plain versions
+    on the inputs one cold step of the family gives them at B=CHECK_B."""
+    from sdf_nmpc_tpu_torch.solver import init_state, make_rti_step
+    from sdf_nmpc_tpu_torch.utils import accuracy
+
+    cfg, ocp, layout, lat = accuracy.build_setup(device=dev, model=model)
+    inputs = tiled_inputs(ocp, cfg, layout, lat, CHECK_B, SEED, dev)
+    log(f"kernel checks, {model} (nx={ocp.nx}, ny={ocp.ny}): one cold step, B={CHECK_B} "
+        "jittered accuracy scenarios")
+    with Capture() as cap:
+        make_rti_step(ocp, cfg, budget="cold", with_evals=False)(init_state(ocp, inputs.x0),
+                                                                 inputs)
+    lin, other = (("erk4_sens", "lin_y_sens") if model in ERK4_FAMILIES
+                  else ("lin_y_sens", "erk4_sens"))
+    if len(cap.args(lin)) != 1 or cap.args(other):
+        raise AssertionError(f"{model}: {lin} called {len(cap.args(lin))} times, {other} "
+                             f"{len(cap.args(other))} times; expected 1 and 0")
+    for a in cap.args(lin):
+        (check_erk4 if lin == "erk4_sens" else check_lin)(a)
+    for a in cap.args("sdf_fused"):
+        check_sdf(a)
+    for a in cap.args("condense"):
+        check_condense(a)
+    torch.cuda.synchronize()
+
+
+def phase_family_accuracy(dev, model) -> dict:
+    """The family's cold scenarios against the oracle and its warm / steady
+    replays, under the CI gate; a named tick of accuracy.SHORT_TICKS under
+    its own limit."""
+    from sdf_nmpc_tpu_torch.utils import accuracy as acc
+
+    cold = acc.check_accuracy(device=dev, model=model)
+    warm = acc.check_warm_accuracy(device=dev, budget="warm", model=model)
+    steady = acc.check_warm_accuracy(device=dev, budget="steady", model=model)
+    short, limit = acc.short_tick(model)
+    g = acc.replay_gates(warm, steady, exempt=short)
+    rows = (("cold vs oracle", cold["u0_mean_err"], cold["u0_max_err"], cold["n_ok"],
+             cold["n_scen"]),
+            ("warm" if short is None else f"warm but scenario/tick {short}", g["warm_mean"],
+             g["warm_max"], warm["n_ok"], warm["n_solves"]),
+            ("steady", g["steady_mean"], g["steady_max"], steady["n_ok"], steady["n_solves"]))
+    for name, mean, mx, n_ok, n in rows:
+        log(f"accuracy {model} {name}: u0 mean {mean:.3e} max {mx:.3e}, {n_ok}/{n} status OK, "
+            f"CI gate {'pass' if acc.ci_gate_ok(mean, mx) else 'FAIL'}, strict <= "
+            f"{acc.CONTRACT_MAX}: {'pass' if mx <= acc.CONTRACT_MAX else 'miss'}")
+    short_ok = short is None or g["exempt_err"] <= limit
+    if short is not None:
+        log(f"accuracy {model} warm scenario/tick {short}: u0 err {g['exempt_err']:.4e}, limit "
+            f"{limit:g}: {'pass' if short_ok else 'FAIL'}")
+    for name, mean, mx, n_ok, n in rows:
+        if n_ok != n or not acc.ci_gate_ok(mean, mx):
+            raise AssertionError(f"accuracy {model} {name}: gate failed")
+    if not short_ok:
+        raise AssertionError(f"accuracy {model}: warm scenario/tick {short} beyond its limit")
+    return {"accuracy_ok": all(r[2] <= acc.CONTRACT_MAX for r in rows),
+            "u0_max_err": cold["u0_max_err"], "u0_warm_max_err": g["warm_max"],
+            "u0_steady_max_err": g["steady_max"]}
+
+
+def phase_family_numbers(model, counts, t_step, steady, state, inputs, card):
+    """Kernel 9's (or 1's) row on the inputs one steady step of the family
+    gives it at B=MAIN_B (held against its plain version there too), and,
+    for kernel 9, the time of the torch.func residual rows the step adds
+    around it."""
+    from torch.func import jacfwd, vmap
+
+    from sdf_nmpc_tpu_torch.ops import lin_kernels
+
+    with Capture() as cap:
+        steady(state, inputs)
+    part, peaks = card_peaks(card.split(",")[0])
+    if model in ERK4_FAMILIES:
+        name = "erk4_sens"
+        runs = {name: (lin_kernels.erk4_sens, lambda a: lin_kernels.erk4_sens_plain(*a),
+                       erk4_cost, None)}
+    else:
+        name = "lin_y_sens"
+        runs = {name: (lin_kernels.lin_y_sens,
+                       lambda a: lin_kernels.lin_y_sens_plain(a[0], *a[2:]), lin_cost, None)}
+    calls = {name: cap.args(name)}
+    log(f"kernel numbers, {model}: inputs of one steady step at B={MAIN_B}")
+    check = check_erk4 if name == "erk4_sens" else check_lin
+    errs = {name: max(check(a) for a in calls[name])}
+    (row,) = kernel_rows(runs, calls, counts, errs, peaks, part)
+    if name == "erk4_sens":
+        spec, X, U, _ = calls[name][0]
+        ocp_y = spec.y
+        P = inputs.p[:, :-1].reshape(X.shape[0], -1)
+
+        def y_node(x, u, p):
+            y_fn = lambda xv, uv: ocp_y(xv, uv, p)
+            return (y_fn(x, u),) + tuple(jacfwd(y_fn, argnums=(0, 1))(x, u))
+
+        glue = cuda_ms(lambda: vmap(y_node)(X, U, P), reps=3)
+        row["residual_rows_ms"] = glue
+        log(f"  {model}: residual rows and their Jacobians by torch.func (vmap of jacfwd of y, "
+            f"M={X.shape[0]}): {glue:.3f} ms per step")
+    log(f"{model}: {name} {row['ms']:.4f} ms of the {t_step * 1e3:.3f} ms chained steady step; "
+        f"card {card}")
+    return row
+
+
+def kernel_row_per_model(rows: dict, top: str) -> dict:
+    """One ``kernels`` row of a kernel run by several models: ``top``'s
+    numbers at top level, every model's under ``per_model``."""
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "residual_rows_ms")
+    row = {k: v for k, v in rows[top].items() if k != "residual_rows_ms"}
+    row["per_model"] = {m: {k: r[k] for k in keys if k in r} for m, r in rows.items()}
+    return row
+
+
+def phase_families(dev, card):
+    """Phases 11-13 for each family; returns {kernel: {model: row}} and the
+    accuracy report."""
+    per_kernel = {"lin_y_sens": {}, "erk4_sens": {}}
+    report = {}
+    for model in ERK4_FAMILIES + LIN_FAMILIES:
+        phase_family_checks(dev, model)
+        report[model] = phase_family_accuracy(dev, model)
+        counts, t_step, steady, state, inputs = phase_main_path(
+            dev, card, per_step=family_per_step(model), label=f"{model} fused path",
+            model=model)
+        phase_profile(steady, state, inputs, t_step, card, label=f"{model} fused path")
+        row = phase_family_numbers(model, counts, t_step, steady, state, inputs, card)
+        per_kernel[row["name"]][model] = row
+        del steady, state, inputs
+    log(json.dumps({"family_accuracy": report}))
+    return per_kernel
+
+
 def main() -> int:
     card = phase_card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1163,6 +1426,11 @@ def main() -> int:
     del steady, state, inputs
     phase_nmpc(dev, card)
     phase_batched(dev, card)
+    per_kernel = phase_families(dev, card)
+    phase_nmpc(dev, card, ticks=NMPC_TICKS_PROPS, model="props", over=None)
+    lin_rows = {"att": rows[0], **per_kernel["lin_y_sens"]}
+    rows[0] = kernel_row_per_model(lin_rows, "att")
+    rows.append(kernel_row_per_model(per_kernel["erk4_sens"], "props"))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,8 +7,11 @@ field, so the two copies cannot drift.  The values are kept exactly as the
 YAML loader produces them, including ``qp_ratio_cap``, which YAML 1.1 reads
 as the string ``'1.0e8'`` (``solver/sqp.py`` converts it with ``float``).
 
-The TPU-only knobs ``matmul_precision`` and ``sdf_fused_dtype`` are kept so
-configs carry over, and ignored: every product here is exact IEEE f32.
+The TPU-only knobs ``matmul_precision`` and ``qp_matmul_precision`` are kept
+so configs carry over, and ignored: every product here is exact IEEE f32.
+``sdf_fused_dtype`` is read by the RTI step: ``f32`` and ``f32x3`` (the
+TPU's three-pass emulation of f32) both run kernel 2 in IEEE f32, and the
+bf16 modes (``bf16``, ``mixed``) raise.
 """
 
 from __future__ import annotations

@@ -1,144 +1,197 @@
 // RK4 step + exact discrete sensitivities + stage residual and its Jacobians
-// for the `att` quad, one thread per (scenario, shooting node) point.
+// for the models with a component-form residual (att, acc, att_tau), one
+// thread per (scenario, shooting node) point.
 //
 // Replaces: sdf_nmpc_tpu/ops/lin_kernels.py _erk4_y_sens_kernel (:173).  For
 // each point: x+ = RK4(f, x, u, dt), A = dx+/dx, B = dx+/du, res = y - yref,
-// Jyx = dy/dx, Jyu = dy/du.  f and y are the component forms f_lanes / y_lanes
-// of models/quad_att.py (the algebraic cos/sin-of-atan2 form), and the
+// Jyx = dy/dx, Jyu = dy/du.  f and y are the component forms f_lanes /
+// y_lanes of the model's module (models/quad_att.py, quad_acc.py,
+// quad_att_tau.py), one struct each; the kernel is a template over it.  The
 // tangents are the nx + nu = 14 unit sweeps of the TPU kernel, each carried
-// as a forward-mode dual number through RK4 and y in registers.
+// as a forward-mode dual number (dual.cuh) through RK4 and y in registers.
 //
 // Bound on this card: bytes.  Per point the kernel reads 30 floats and writes
-// 10 + 100 + 40 + 11 + 110 + 44 = 315 (226 MB at B=8192, N=20) against
-// ~15,000 flops of register arithmetic.  The design
-// keeps every intermediate in registers (one thread per point, the 14 sweeps
-// in a loop, never spilled to memory); outputs are written batch-first
-// (point-major), which leaves the stores strided across a warp: staging them
-// through shared memory for coalescing is a later lever.
+// 10 + 100 + 40 + 11 + 110 + 44 = 315 (226 MB at B=8192, N=20) against some
+// 10^4 flops of register arithmetic.  The design keeps every intermediate in
+// registers (one thread per point, the 14 sweeps in a loop, never spilled to
+// memory); outputs are written batch-first (point-major), which leaves the
+// stores strided across a warp: staging them through shared memory for
+// coalescing is a later lever.
 
-#include "common.cuh"
+#include "dual.cuh"
 
 namespace {
 
-constexpr int NX = 10, NU = 4, NY = 11;
-constexpr float GRAVITY = 9.81f;
+constexpr int NU = 4, NY = 11;
 
-struct Dual {
-  float v, d;
+// models/quad_att.py f_lanes / y_lanes
+struct Att {
+  static constexpr int NX = 10;
+
+  template <typename T>
+  static __device__ __forceinline__ void f(const T* x, const T* u, const ModelConsts& c, T* out) {
+    const T sq = x[3] * x[3] + x[4] * x[4] + x[5] * x[5] + x[6] * x[6];
+    const T inv = rsqrt_(sq);
+    const T q0 = x[3] * inv, q1 = x[4] * inv, q2 = x[5] * inv, q3 = x[6] * inv;
+    const T gamma = u[0] * c.scale[0], roll = u[1] * c.scale[1], pitch = u[2] * c.scale[2];
+    const T wz = u[3] * c.scale[3];
+    const T rinv = rsqrt_(q0 * q0 + q3 * q3);
+    const T cy = q0 * rinv, sy = q3 * rinv;
+    const T r00 = cy * cy - sy * sy;
+    const T r10 = 2.f * cy * sy;
+    const T cr = cos_(roll), sr = sin_(roll), cp = cos_(pitch), sp = sin_(pitch);
+    const T b0 = gamma * (cr * sp);
+    const T b1 = gamma * (-sr);
+    const T b2 = gamma * (cr * cp);
+    const T h = 0.5f * wz;
+    out[0] = x[7];
+    out[1] = x[8];
+    out[2] = x[9];
+    out[3] = -h * q3;
+    out[4] = h * q2;
+    out[5] = -h * q1;
+    out[6] = h * q0;
+    out[7] = r00 * b0 - r10 * b1;
+    out[8] = r10 * b0 + r00 * b1;
+    out[9] = (cy * cy + sy * sy) * b2 - GRAVITY;
+  }
+
+  template <typename T>
+  static __device__ __forceinline__ void y(const T* x, const T* u, const float* qd,
+                                           const ModelConsts& c, T* out) {
+    const T sq = x[3] * x[3] + x[4] * x[4] + x[5] * x[5] + x[6] * x[6];
+    const T inv = rsqrt_(sq);
+    const T q0 = x[3] * inv, q1 = x[4] * inv, q2 = x[5] * inv, q3 = x[6] * inv;
+    const T s = rsqrt_(q0 * q0 + q1 * q1 + q2 * q2 + q3 * q3);
+    const T qi0 = q0 * s, qi1 = -q1 * s, qi2 = -q2 * s, qi3 = -q3 * s;
+    const T qe3 = qd[0] * qi3 + qd[1] * qi2 - qd[2] * qi1 + qd[3] * qi0;
+    const T gamma = u[0] * c.scale[0], roll = u[1] * c.scale[1], pitch = u[2] * c.scale[2];
+    const T wz = u[3] * c.scale[3];
+    const T rinv = rsqrt_(q0 * q0 + q3 * q3);
+    const T cy = q0 * rinv, sy = q3 * rinv;
+    const T a2 = (cy * cy + sy * sy) * (gamma * cos_(roll) * cos_(pitch)) - GRAVITY;
+    out[0] = x[0];
+    out[1] = x[1];
+    out[2] = x[2];
+    out[3] = qe3;
+    out[4] = x[7];
+    out[5] = x[8];
+    out[6] = x[9];
+    out[7] = roll;
+    out[8] = pitch;
+    out[9] = wz;
+    out[10] = a2;
+  }
 };
-__device__ __forceinline__ Dual operator+(Dual a, Dual b) { return {a.v + b.v, a.d + b.d}; }
-__device__ __forceinline__ Dual operator-(Dual a, Dual b) { return {a.v - b.v, a.d - b.d}; }
-__device__ __forceinline__ Dual operator-(Dual a) { return {-a.v, -a.d}; }
-__device__ __forceinline__ Dual operator*(Dual a, Dual b) {
-  return {a.v * b.v, a.d * b.v + a.v * b.d};
-}
-__device__ __forceinline__ Dual operator*(float s, Dual a) { return {s * a.v, s * a.d}; }
-__device__ __forceinline__ Dual operator*(Dual a, float s) { return {a.v * s, a.d * s}; }
-__device__ __forceinline__ Dual operator+(Dual a, float s) { return {a.v + s, a.d}; }
-__device__ __forceinline__ Dual operator-(Dual a, float s) { return {a.v - s, a.d}; }
 
-__device__ __forceinline__ float sin_(float x) { return sinf(x); }
-__device__ __forceinline__ float cos_(float x) { return cosf(x); }
-__device__ __forceinline__ Dual sin_(Dual x) { return {sinf(x.v), cosf(x.v) * x.d}; }
-__device__ __forceinline__ Dual cos_(Dual x) { return {cosf(x.v), -sinf(x.v) * x.d}; }
-// rsqrt(max(x, 1e-30)), with the tangent rule -0.5 * rsqrt(x) / x
-__device__ __forceinline__ float rsqrt_(float x) { return 1.f / sqrtf(fmaxf(x, 1e-30f)); }
-__device__ __forceinline__ Dual rsqrt_(Dual x) {
-  const float r = 1.f / sqrtf(fmaxf(x.v, 1e-30f));
-  return {r, x.v > 1e-30f ? x.d * (-0.5f * (r / x.v)) : 0.f};
-}
-template <typename T> __device__ __forceinline__ T lift(float v);
-template <> __device__ __forceinline__ float lift<float>(float v) { return v; }
-template <> __device__ __forceinline__ Dual lift<Dual>(float v) { return {v, 0.f}; }
-
-struct Limits {
-  float gamma, roll, pitch, wz;
-};
-
-// models/quad_att.py f_lanes
+// q_e's z-component: hamilton(qd, quat_invert(q))[3] on the normalized q
 template <typename T>
-__device__ __forceinline__ void f_att(const T* x, const T* u, const Limits& lim, T* out) {
-  const T sq = x[3] * x[3] + x[4] * x[4] + x[5] * x[5] + x[6] * x[6];
-  const T inv = rsqrt_(sq);
-  const T q0 = x[3] * inv, q1 = x[4] * inv, q2 = x[5] * inv, q3 = x[6] * inv;
-  const T gamma = u[0] * lim.gamma, roll = u[1] * lim.roll, pitch = u[2] * lim.pitch;
-  const T wz = u[3] * lim.wz;
-  const T rinv = rsqrt_(q0 * q0 + q3 * q3);
-  const T c = q0 * rinv, s = q3 * rinv;
-  const T r00 = c * c - s * s;
-  const T r10 = 2.f * c * s;
-  const T cr = cos_(roll), sr = sin_(roll), cp = cos_(pitch), sp = sin_(pitch);
-  const T b0 = gamma * (cr * sp);
-  const T b1 = gamma * (-sr);
-  const T b2 = gamma * (cr * cp);
-  const T h = 0.5f * wz;
-  out[0] = x[7];
-  out[1] = x[8];
-  out[2] = x[9];
-  out[3] = -h * q3;
-  out[4] = h * q2;
-  out[5] = -h * q1;
-  out[6] = h * q0;
-  out[7] = r00 * b0 - r10 * b1;
-  out[8] = r10 * b0 + r00 * b1;
-  out[9] = (c * c + s * s) * b2 - GRAVITY;
-}
-
-// models/quad_att.py y_lanes
-template <typename T>
-__device__ __forceinline__ void y_att(const T* x, const T* u, const float* qd, const Limits& lim,
-                                      T* out) {
-  const T sq = x[3] * x[3] + x[4] * x[4] + x[5] * x[5] + x[6] * x[6];
-  const T inv = rsqrt_(sq);
-  const T q0 = x[3] * inv, q1 = x[4] * inv, q2 = x[5] * inv, q3 = x[6] * inv;
+__device__ __forceinline__ T qe3_of(const T& q0, const T& q1, const T& q2, const T& q3,
+                                    const float* qd) {
   const T s = rsqrt_(q0 * q0 + q1 * q1 + q2 * q2 + q3 * q3);
   const T qi0 = q0 * s, qi1 = -q1 * s, qi2 = -q2 * s, qi3 = -q3 * s;
-  const T qe3 = qd[0] * qi3 + qd[1] * qi2 - qd[2] * qi1 + qd[3] * qi0;
-  const T gamma = u[0] * lim.gamma, roll = u[1] * lim.roll, pitch = u[2] * lim.pitch;
-  const T wz = u[3] * lim.wz;
-  const T rinv = rsqrt_(q0 * q0 + q3 * q3);
-  const T c = q0 * rinv, sy = q3 * rinv;
-  const T a2 = (c * c + sy * sy) * (gamma * cos_(roll) * cos_(pitch)) - GRAVITY;
-  out[0] = x[0];
-  out[1] = x[1];
-  out[2] = x[2];
-  out[3] = qe3;
-  out[4] = x[7];
-  out[5] = x[8];
-  out[6] = x[9];
-  out[7] = roll;
-  out[8] = pitch;
-  out[9] = wz;
-  out[10] = a2;
+  return qd[0] * qi3 + qd[1] * qi2 - qd[2] * qi1 + qd[3] * qi0;
 }
 
-// solver/integrator.py erk4
-template <typename T>
-__device__ __forceinline__ void erk4(const T* x, const T* u, float dt, const Limits& lim,
-                                     T* xn) {
-  T k1[NX], k2[NX], k3[NX], k4[NX], xs[NX];
-  const float h = 0.5f * dt;
-  f_att(x, u, lim, k1);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) xs[i] = x[i] + h * k1[i];
-  f_att(xs, u, lim, k2);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) xs[i] = x[i] + h * k2[i];
-  f_att(xs, u, lim, k3);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) xs[i] = x[i] + dt * k3[i];
-  f_att(xs, u, lim, k4);
-  const float w = dt / 6.0f;
-#pragma unroll
-  for (int i = 0; i < NX; ++i) xn[i] = x[i] + w * (k1[i] + 2.f * k2[i] + 2.f * k3[i] + k4[i]);
-}
+// models/quad_acc.py f_lanes / y_lanes
+struct Acc {
+  static constexpr int NX = 10;
 
+  template <typename T>
+  static __device__ __forceinline__ void f(const T* x, const T* u, const ModelConsts& c, T* out) {
+    const T inv = rsqrt_(x[3] * x[3] + x[4] * x[4] + x[5] * x[5] + x[6] * x[6]);
+    const T q0 = x[3] * inv, q1 = x[4] * inv, q2 = x[5] * inv, q3 = x[6] * inv;
+    const T h = 0.5f * u[3] * c.scale[3];
+    out[0] = x[7];
+    out[1] = x[8];
+    out[2] = x[9];
+    out[3] = -h * q3;
+    out[4] = h * q2;
+    out[5] = -h * q1;
+    out[6] = h * q0;
+    out[7] = u[0] * c.scale[0];
+    out[8] = u[1] * c.scale[1];
+    out[9] = u[2] * c.scale[2];
+  }
+
+  template <typename T>
+  static __device__ __forceinline__ void y(const T* x, const T* u, const float* qd,
+                                           const ModelConsts& c, T* out) {
+    const T inv = rsqrt_(x[3] * x[3] + x[4] * x[4] + x[5] * x[5] + x[6] * x[6]);
+    out[0] = x[0];
+    out[1] = x[1];
+    out[2] = x[2];
+    out[3] = qe3_of(x[3] * inv, x[4] * inv, x[5] * inv, x[6] * inv, qd);
+    out[4] = x[7];
+    out[5] = x[8];
+    out[6] = x[9];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[7 + i] = u[i] * c.scale[i];
+  }
+};
+
+// models/quad_att_tau.py f_lanes / y_lanes.  Roll and pitch are the true
+// atan2 and asin (of the clipped argument), with their exact derivative
+// rules; the TPU kernel spells them with polynomials (math.py atan2_poly /
+// asin_poly) because its compiler has no atan2.  The lag's body rate divides
+// by cos(pitch), as deuler_avel_map does.
+struct AttTau {
+  static constexpr int NX = 10;
+  static constexpr float TAU_ROLL = 0.12f, TAU_PITCH = 0.12f;
+
+  template <typename T>
+  static __device__ __forceinline__ void f(const T* x, const T* u, const ModelConsts& c, T* out) {
+    const T inv = rsqrt_(x[3] * x[3] + x[4] * x[4] + x[5] * x[5] + x[6] * x[6]);
+    const T q0 = x[3] * inv, q1 = x[4] * inv, q2 = x[5] * inv, q3 = x[6] * inv;
+    const T gamma = u[0] * c.scale[0], roll_des = u[1] * c.scale[1];
+    const T pitch_des = u[2] * c.scale[2], wz = u[3] * c.scale[3];
+    const T roll = atan2_(2.f * (q0 * q1 + q2 * q3), 1.f - 2.f * (q1 * q1 + q2 * q2));
+    const T pitch = asin_clip_(2.f * (q0 * q2 - q3 * q1));
+    const T dot_roll = (roll_des - roll) / TAU_ROLL;
+    const T dot_pitch = (pitch_des - pitch) / TAU_PITCH;
+    const T sr = sin_(roll), cr = cos_(roll), sp = sin_(pitch), cp = cos_(pitch);
+    const T w0 = dot_roll + (sp * sr / cp) * dot_pitch;
+    const T w1 = cr * dot_pitch;
+    out[0] = x[7];
+    out[1] = x[8];
+    out[2] = x[9];
+    out[3] = 0.5f * (-q1 * w0 - q2 * w1 - q3 * wz);
+    out[4] = 0.5f * (q0 * w0 + q2 * wz - q3 * w1);
+    out[5] = 0.5f * (q0 * w1 - q1 * wz + q3 * w0);
+    out[6] = 0.5f * (q0 * wz + q1 * w1 - q2 * w0);
+    out[7] = gamma * (2.f * (q1 * q3 + q0 * q2));
+    out[8] = gamma * (2.f * (q2 * q3 - q0 * q1));
+    out[9] = gamma * (q0 * q0 - q1 * q1 - q2 * q2 + q3 * q3) - GRAVITY;
+  }
+
+  template <typename T>
+  static __device__ __forceinline__ void y(const T* x, const T* u, const float* qd,
+                                           const ModelConsts& c, T* out) {
+    const T inv = rsqrt_(x[3] * x[3] + x[4] * x[4] + x[5] * x[5] + x[6] * x[6]);
+    const T q0 = x[3] * inv, q1 = x[4] * inv, q2 = x[5] * inv, q3 = x[6] * inv;
+    const T gamma = u[0] * c.scale[0];
+    out[0] = x[0];
+    out[1] = x[1];
+    out[2] = x[2];
+    out[3] = qe3_of(q0, q1, q2, q3, qd);
+    out[4] = x[7];
+    out[5] = x[8];
+    out[6] = x[9];
+    out[7] = u[1] * c.scale[1];
+    out[8] = u[2] * c.scale[2];
+    out[9] = u[3] * c.scale[3];
+    out[10] = gamma * (q0 * q0 - q1 * q1 - q2 * q2 + q3 * q3) - GRAVITY;
+  }
+};
+
+template <class Model>
 __global__ void lin_y_sens_kernel(const float* __restrict__ X, const float* __restrict__ U,
                                   const float* __restrict__ dtv, const float* __restrict__ QD,
                                   const float* __restrict__ YREF, float* __restrict__ XN,
                                   float* __restrict__ A, float* __restrict__ Bm,
                                   float* __restrict__ RES, float* __restrict__ JYX,
-                                  float* __restrict__ JYU, int M, Limits lim) {
+                                  float* __restrict__ JYU, int M, ModelConsts c) {
+  constexpr int NX = Model::NX;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= M) return;
   float x[NX], u[NU], qd[4];
@@ -152,8 +205,8 @@ __global__ void lin_y_sens_kernel(const float* __restrict__ X, const float* __re
 
   {
     float xn[NX], yv[NY];
-    erk4(x, u, dt, lim, xn);
-    y_att(x, u, qd, lim, yv);
+    erk4<Model>(x, u, dt, c, xn);
+    Model::y(x, u, qd, c, yv);
 #pragma unroll
     for (int i = 0; i < NX; ++i) XN[size_t(p) * NX + i] = xn[i];
 #pragma unroll
@@ -167,8 +220,8 @@ __global__ void lin_y_sens_kernel(const float* __restrict__ X, const float* __re
     for (int i = 0; i < NX; ++i) xd[i] = {x[i], dir == i ? 1.f : 0.f};
 #pragma unroll
     for (int i = 0; i < NU; ++i) ud[i] = {u[i], dir == NX + i ? 1.f : 0.f};
-    erk4(xd, ud, dt, lim, xn);
-    y_att(xd, ud, qd, lim, yd);
+    erk4<Model>(xd, ud, dt, c, xn);
+    Model::y(xd, ud, qd, c, yd);
     if (dir < NX) {
 #pragma unroll
       for (int i = 0; i < NX; ++i) A[(size_t(p) * NX + i) * NX + dir] = xn[i].d;
@@ -184,17 +237,32 @@ __global__ void lin_y_sens_kernel(const float* __restrict__ X, const float* __re
   }
 }
 
+template <class Model>
+cudaError_t launch(const float* X, const float* U, const float* dt, const float* qd,
+                   const float* yref, float* xn, float* A, float* Bm, float* res, float* Jyx,
+                   float* Jyu, int M, const ModelConsts& c, cudaStream_t stream) {
+  const int threads = 128;
+  lin_y_sens_kernel<Model><<<(M + threads - 1) / threads, threads, 0, stream>>>(
+      X, U, dt, qd, yref, xn, A, Bm, res, Jyx, Jyu, M, c);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// model: 0 att, 1 acc, 2 att_tau (ModelSpec.kernel_model); consts:
+// host pointer to the n_consts floats of models/base.py::kernel_consts.
 SDF_NMPC_EXPORT int lin_y_sens_launch(const float* X, const float* U, const float* dt,
                                       const float* qd, const float* yref, float* xn, float* A,
                                       float* Bm, float* res, float* Jyx, float* Jyu, int M,
-                                      float lim_gamma, float lim_roll, float lim_pitch,
-                                      float lim_wz, cudaStream_t stream) {
-  if (M <= 0) return int(cudaErrorInvalidValue);
-  const Limits lim{lim_gamma, lim_roll, lim_pitch, lim_wz};
-  const int threads = 128;
-  lin_y_sens_kernel<<<(M + threads - 1) / threads, threads, 0, stream>>>(
-      X, U, dt, qd, yref, xn, A, Bm, res, Jyx, Jyu, M, lim);
-  return int(cudaGetLastError());
+                                      int model, const float* consts, int n_consts,
+                                      cudaStream_t stream) {
+  ModelConsts c;
+  if (M <= 0 || !load_consts(consts, n_consts, &c)) return int(cudaErrorInvalidValue);
+  switch (model) {
+    case 0: return int(launch<Att>(X, U, dt, qd, yref, xn, A, Bm, res, Jyx, Jyu, M, c, stream));
+    case 1: return int(launch<Acc>(X, U, dt, qd, yref, xn, A, Bm, res, Jyx, Jyu, M, c, stream));
+    case 2:
+      return int(launch<AttTau>(X, U, dt, qd, yref, xn, A, Bm, res, Jyx, Jyu, M, c, stream));
+    default: return int(cudaErrorInvalidValue);
+  }
 }

@@ -7,6 +7,7 @@ function works on the last axis and broadcasts over leading batch axes.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -65,3 +66,54 @@ def hamilton_prod(q1, q2):
         ],
         -1,
     )
+
+
+def quat2euler(q):
+    """[roll pitch yaw] from quaternion: (..., 4) -> (..., 3).  Pitch is the
+    asin of its argument clipped to [-1, 1]."""
+    w, x, y, z = q.unbind(-1)
+    roll = torch.atan2(2 * (w * x + y * z), 1 - 2 * (x * x + y * y))
+    pitch = torch.asin(torch.clamp(2 * (w * y - z * x), -1.0, 1.0))
+    yaw = torch.atan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
+    return torch.stack([roll, pitch, yaw], -1)
+
+
+def deuler_avel_map(euler):
+    """Map from euler-angle rates to body angular rates: (..., 3) -> (..., 3, 3).
+
+    Kept entry for entry as the JAX package has it, including its (0, 2) and
+    (1, 2) entries, since quad_att_tau's dynamics are defined through it."""
+    r, p = euler[..., 0], euler[..., 1]
+    one, zero = torch.ones_like(r), torch.zeros_like(r)
+    sr, cr, sp, cp = torch.sin(r), torch.cos(r), torch.sin(p), torch.cos(p)
+    row0 = torch.stack([one, sp * sr / cp, sp * cr], -1)
+    row1 = torch.stack([zero, cr, -sp], -1)
+    row2 = torch.stack([zero, sr / cp, cr / cp], -1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+# ---- GTMRP allocation (numpy: constant data of a model, built once) ----
+
+
+def axis_rot(axis: str, angle: float) -> np.ndarray:
+    """Rotation matrix about the x, y or z axis."""
+    c, s = np.cos(angle), np.sin(angle)
+    if axis == "x":
+        return np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
+    if axis == "y":
+        return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    if axis == "z":
+        return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    raise ValueError(axis)
+
+
+def gtmrp_matrix(R, p, signs, c_f, c_t):
+    """Force and torque allocation matrices Gf, Gt (3, n) of rotors with
+    orientations R, positions p, spin signs and force / torque coefficients."""
+    Rz = [np.asarray(r) @ np.array([0.0, 0.0, 1.0]) for r in R]
+    G_f = np.column_stack(Rz)
+    G_t = np.column_stack([
+        np.cross(np.asarray(p[i]).flatten(), Rz[i].flatten()) + c_t[i] / c_f[i] * signs[i] * Rz[i]
+        for i in range(len(R))
+    ])
+    return G_f, G_t

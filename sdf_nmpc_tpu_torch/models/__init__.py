@@ -1,24 +1,28 @@
-"""Dynamics model registry.  The port carries the ``att`` family; the other
-five quad families are queued in ROADMAP.md (section 1, item 9)."""
+"""Dynamics model registry: the six quad families of the JAX package."""
 
 from .base import GRAVITY, ModelSpec, terminal_gate_enabled
-from . import quad_att
+from . import quad_acc, quad_att, quad_att_tau, quad_props, quad_rates, quad_wrench
 
-_PORTED = {"att": quad_att.make_model}
-_QUEUED = ("acc", "att_tau", "rates", "wrench", "props")
+_REGISTRY = {
+    "acc": quad_acc.make_model,
+    "att": quad_att.make_model,
+    "att_tau": quad_att_tau.make_model,
+    "rates": quad_rates.make_model,
+    "wrench": quad_wrench.make_model,
+    "props": quad_props.make_model,
+}
+
+
+def available_models():
+    return sorted(_REGISTRY)
 
 
 def make_model(cfg) -> ModelSpec:
     """Build the ModelSpec selected by cfg.mpc.model."""
     key = cfg.mpc.model
-    if key in _QUEUED:
-        raise NotImplementedError(
-            f"mpc model {key!r} is not ported yet; it is queued in ROADMAP.md "
-            "section 1 item 9 (other quad families)"
-        )
-    if key not in _PORTED:
-        raise ValueError(f"unknown mpc model {key!r}; ported: {sorted(_PORTED)}")
-    return _PORTED[key](cfg)
+    if key not in _REGISTRY:
+        raise ValueError(f"unknown mpc model {key!r}; available: {available_models()}")
+    return _REGISTRY[key](cfg)
 
 
-__all__ = ["GRAVITY", "ModelSpec", "make_model", "terminal_gate_enabled"]
+__all__ = ["GRAVITY", "ModelSpec", "available_models", "make_model", "terminal_gate_enabled"]

@@ -14,7 +14,7 @@ import torch
 
 from .. import math as m
 from ..params import ParamLayout
-from .base import GRAVITY, ModelSpec, terminal_gate_enabled
+from .base import GRAVITY, ModelSpec, kernel_consts, scale_inputs, terminal_gate_enabled
 
 
 def make_model(cfg) -> ModelSpec:
@@ -31,10 +31,8 @@ def make_model(cfg) -> ModelSpec:
     scale = (float(lim.gamma), float(lim.roll), float(lim.pitch), float(lim.wz))
 
     def _scaled(u):
-        """(gamma, roll, pitch, wz): u times the limits, as one vector
-        product (a 0-dim tensor times a Python float can get a float64
-        tangent under forward-mode AD)."""
-        return (u * torch.as_tensor(scale, dtype=u.dtype, device=u.device)).unbind(-1)
+        """(gamma, roll, pitch, wz): u times the limits."""
+        return scale_inputs(u, scale).unbind(-1)
 
     def _wrb_wa(q, u):
         gamma, roll, pitch, _ = _scaled(u)
@@ -153,5 +151,7 @@ def make_model(cfg) -> ModelSpec:
         u_to_TRPYr=u_to_TRPYr,
         f_lanes=f_lanes,
         y_lanes=y_lanes,
-        kernel_limits=(float(lim.gamma), float(lim.roll), float(lim.pitch), float(lim.wz)),
+        vel_world=lambda x: x[..., 7:10],
+        kernel_consts=kernel_consts(scale),
+        kernel_model=("lin_y_sens", 0),
     )

@@ -25,11 +25,12 @@ import torch
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("lin_y_sens.cu", "sdf_fused.cu", "condense.cu", "ip_phase.cu", "qp_solve.cu")
+SOURCES = ("lin_y_sens.cu", "erk4_sens.cu", "sdf_fused.cu", "condense.cu", "ip_phase.cu",
+           "qp_solve.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-launch_counts = {"lin_y_sens": 0, "sdf_fused": 0, "condense": 0, "ip_phase": 0,
+launch_counts = {"lin_y_sens": 0, "erk4_sens": 0, "sdf_fused": 0, "condense": 0, "ip_phase": 0,
                  "factor_solve": 0, "solve": 0, "stiff_factor_solve": 0, "stiff_resolve": 0}
 
 # what the last build printed (ptxas register / spill report)
@@ -39,7 +40,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "lin_y_sens_launch": [_P] * 11 + [_I] + [_F] * 4 + [_P],
+    # (..., M, model id, host pointer to the ModelConsts floats, their count, stream)
+    "lin_y_sens_launch": [_P] * 11 + [_I, _I, _P, _I, _P],
+    "erk4_sens_launch": [_P] * 6 + [_I, _I, _P, _I, _P],
     "sdf_fused_launch": [_P] * 15 + [_I] * 5 + [_F, _P],
     "condense_launch": [_P] * 18 + [_I] * 6 + [_P],
     "ip_phase_launch": [_P] * 12 + [_I] * 7 + [_F] * 5 + [_P],

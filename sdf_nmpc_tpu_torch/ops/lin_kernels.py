@@ -1,26 +1,52 @@
-"""Kernel 1: RK4 linearization + stage residual Jacobians (``lin_y_sens``).
+"""Kernels 1 and 9: RK4 linearization of the dynamics, per shooting node.
 
-Counterpart of sdf_nmpc_tpu/ops/lin_kernels.py ``_erk4_y_sens_kernel`` (:173)
-and its wrapper ``make_lin_y_nodes`` (:249).  For M independent (scenario,
-node) points it returns x+ = RK4(f, x, u, dt), A = dx+/dx, B = dx+/du,
-res = y(x, u, p) - yref, Jyx = dy/dx and Jyu = dy/du.
+Kernel 1 (``lin_y_sens``) is the counterpart of
+sdf_nmpc_tpu/ops/lin_kernels.py ``_erk4_y_sens_kernel`` (:173) and its
+wrapper ``make_lin_y_nodes`` (:249).  For M independent (scenario, node)
+points it returns x+ = RK4(f, x, u, dt), A = dx+/dx, B = dx+/du,
+res = y(x, u, p) - yref, Jyx = dy/dx and Jyu = dy/du.  It serves the models
+with a component-form residual (``y_lanes``): att, acc and att_tau.
 
-On a CUDA tensor the wrapper launches ``csrc/lin_y_sens.cu`` (the model's
-component forms f_lanes / y_lanes as device functions, forward-mode
-tangents in registers).  On a CPU tensor it runs the plain version: RK4 of the
-model's ``f`` (true atan2) differentiated with ``torch.func.jacfwd``, exactly
-the JAX package's non-kernel path.  The two forms differ by rounding only
-(the algebraic cos/sin-of-atan2 is exact), which the tests' tolerances cover.
-Callers install it only when the OCP residual is exactly the model residual.
+Kernel 9 (``erk4_sens``) is the counterpart of ``_erk4_sens_kernel`` (:49)
+and ``make_erk4_sens_nodes`` (:120): x+, A and B alone, for the models
+without ``y_lanes`` (rates, wrench, props); their residual rows come from
+``torch.func`` in the step, as in the JAX package.
+
+On CUDA tensors each wrapper launches its CUDA source (``csrc/lin_y_sens.cu``,
+``csrc/erk4_sens.cu``), instantiated per model: the model's component forms
+f_lanes / y_lanes as device functions, forward-mode tangents in registers,
+the model's constants (``ModelSpec.kernel_consts``) passed by value, the
+instantiation named by ``ModelSpec.kernel_model``.  A model without an
+instantiation of that kernel raises.  On CPU tensors a wrapper runs its plain
+version: RK4 of the model's ``f`` (true atan2 / asin) differentiated with
+``torch.func.jacfwd``, exactly the JAX package's non-kernel path.  The two
+forms differ by rounding only (att's algebraic cos/sin-of-atan2 is exact),
+which the tests' tolerances cover.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 from torch.func import jacfwd, vmap
 
+from ..models.base import N_KERNEL_CONSTS
 from ..solver.integrator import erk4_with_sensitivities
 from . import _lib
+
+
+def _model_id(kernel: str, model) -> int:
+    """The model's instantiation id in ``kernel``'s source (ModelSpec.kernel_model)."""
+    if model.kernel_model is None or model.kernel_model[0] != kernel:
+        raise NotImplementedError(
+            f"{kernel} has no CUDA instantiation for model {model.name!r} (its kernel: "
+            f"{model.kernel_model})")
+    return model.kernel_model[1]
+
+
+def _consts(model):
+    return (ctypes.c_float * N_KERNEL_CONSTS)(*model.kernel_consts)
 
 
 def lin_y_sens_plain(model, X, U, dt, P, yref):
@@ -38,29 +64,61 @@ def lin_y_sens_plain(model, X, U, dt, P, yref):
 
 
 def _lin_y_sens_cuda(model, layout, X, U, dt, P, yref):
-    if model.kernel_limits is None or model.f_lanes is None or model.y_lanes is None:
-        raise NotImplementedError(f"model {model.name!r} has no CUDA linearization kernel")
+    model_id = _model_id("lin_y_sens", model)
     M, nx = X.shape
     nu, ny = U.shape[-1], yref.shape[-1]
     if (nx, nu, ny) != (10, 4, 11):
-        raise ValueError(f"lin_y_sens kernel is built for the att model, got {(nx, nu, ny)}")
+        raise ValueError(f"lin_y_sens kernel is built for (nx, nu, ny) = (10, 4, 11), got "
+                         f"{(nx, nu, ny)}")
     qd = P[:, list(layout.q_d)].contiguous()
     _lib.require_cuda_f32("lin_y_sens", X, U, dt, qd, yref)
     for name, t, shape in (("U", U, (M, nu)), ("dt", dt, (M,)), ("yref", yref, (M, ny))):
         _lib.require_shape(f"lin_y_sens {name}", t, shape)
     new = lambda *s: torch.empty((M,) + s, dtype=torch.float32, device=X.device)
     out = (new(nx), new(nx, nx), new(nx, nu), new(ny), new(ny, nx), new(ny, nu))
-    lib = _lib.library()
-    err = lib.lin_y_sens_launch(
-        *[t.data_ptr() for t in (X, U, dt, qd, yref, *out)], M,
-        *model.kernel_limits, _lib.stream_ptr())
+    err = _lib.library().lin_y_sens_launch(
+        *[t.data_ptr() for t in (X, U, dt, qd, yref, *out)], M, model_id, _consts(model),
+        N_KERNEL_CONSTS, _lib.stream_ptr())
     _lib.check(err, "lin_y_sens")
     _lib.launch_counts["lin_y_sens"] += 1
     return out
 
 
 def lin_y_sens(model, layout, X, U, dt, P, yref):
-    """Kernel on CUDA tensors, plain version on CPU tensors (see module doc)."""
+    """Kernel 1 on CUDA tensors, plain version on CPU tensors (see module doc)."""
     if X.is_cuda:
         return _lin_y_sens_cuda(model, layout, X, U, dt, P, yref)
     return lin_y_sens_plain(model, X, U, dt, P, yref)
+
+
+def erk4_sens_plain(model, X, U, dt):
+    """X (M, nx), U (M, nu), dt (M,) -> (x_next (M, nx), A (M, nx, nx),
+    B (M, nx, nu)): vmap of erk4_with_sensitivities on the model's f."""
+    return vmap(lambda x, u, d: erk4_with_sensitivities(model.f, x, u, d))(X, U, dt)
+
+
+def _erk4_sens_cuda(model, X, U, dt):
+    model_id = _model_id("erk4_sens", model)
+    M, nx = X.shape
+    nu = U.shape[-1]
+    if (nx, nu) != (model.nx, 4):
+        raise ValueError(f"erk4_sens for {model.name!r} takes (nx, nu) = ({model.nx}, 4), got "
+                         f"{(nx, nu)}")
+    _lib.require_cuda_f32("erk4_sens", X, U, dt)
+    _lib.require_shape("erk4_sens U", U, (M, nu))
+    _lib.require_shape("erk4_sens dt", dt, (M,))
+    new = lambda *s: torch.empty((M,) + s, dtype=torch.float32, device=X.device)
+    out = (new(nx), new(nx, nx), new(nx, nu))
+    err = _lib.library().erk4_sens_launch(
+        *[t.data_ptr() for t in (X, U, dt, *out)], M, model_id, _consts(model),
+        N_KERNEL_CONSTS, _lib.stream_ptr())
+    _lib.check(err, "erk4_sens")
+    _lib.launch_counts["erk4_sens"] += 1
+    return out
+
+
+def erk4_sens(model, X, U, dt):
+    """Kernel 9 on CUDA tensors, plain version on CPU tensors (see module doc)."""
+    if X.is_cuda:
+        return _erk4_sens_cuda(model, X, U, dt)
+    return erk4_sens_plain(model, X, U, dt)

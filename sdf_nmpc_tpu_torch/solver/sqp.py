@@ -7,6 +7,9 @@ backend.  The JAX step is single-scenario and reaches its kernels through
 directly:
 
   1. ``ops.lin_kernels.lin_y_sens``   RK4 + A, B + stage residual + Jyx, Jyu
+     (models with ``y_lanes``: att, acc, att_tau), or
+  9. ``ops.lin_kernels.erk4_sens``    RK4 + A, B (rates, wrench, props), the
+     stage residual and its Jacobians then by ``torch.func``
   2. ``ops.sdf_fused.sdf_value_grad`` NeuralDF value + position gradient
   3. ``ops.condense_kernel.condense`` condensing recursion + condensed rows
   4. ``ops.ip_kernel.ip_phase``       (inside ``solve_qp``) two IP phases, or
@@ -19,8 +22,9 @@ JAX step does.  With ``dual_warm_start`` the state carries the QP duals from
 tick to tick (acados' ``qp_solver_warm_start``).
 
 The FoV-row, ``yN`` and terminal ``hN`` Jacobians use ``torch.func``; the
-Gram H/g assembly is one ``torch.bmm``.  A non-finite update leaves the
-scenario's warm start untouched and reports STATUS_NAN.
+Gram H/g assembly (``gram``) accumulates in f64, where the JAX step forms it
+in f32.  A non-finite update leaves the scenario's warm start untouched and
+reports STATUS_NAN.
 """
 
 from __future__ import annotations
@@ -41,6 +45,36 @@ STATUS_NAN = 1
 STATUS_NOT_CONVERGED = 2  # KKT residual above cfg.solver.kkt_tol (state kept)
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+# rows of an f32 M per f64 chunk of the Gram product: at B=8192, nz=80 a
+# chunk and its weighted transpose take 1.34 GB, about what the one f32
+# weighted copy of M took (att: 1.15 GB, props: 1.59 GB)
+GRAM_CHUNK = 128
+
+
+def gram(M_rows, w_rows, r_rows, lm: float, dtype):
+    """H = M' diag(w) M + lm I and g = M' r of the condensed QP, for M_rows
+    (B, R, nz), w_rows and r_rows (B, R).
+
+    The products accumulate in f64 and are rounded once to ``dtype``; the
+    JAX step forms them in f32.  An f32 M is cast GRAM_CHUNK rows at a
+    time, so that its f64 copies stay small; an f64 M goes in one product.
+    Measured on props' cold scenarios: with f32 Gram products the port's
+    f32 step lay beyond the CI gate on the H100 (PERF.md section 6,
+    ``utils/f32_floor.py``)."""
+    B, R, nz = M_rows.shape
+    H = M_rows.new_zeros(B, nz, nz, dtype=torch.float64)
+    g = M_rows.new_zeros(B, nz, 1, dtype=torch.float64)
+    w, r = w_rows.double(), r_rows.double()
+    chunk = R if M_rows.dtype == torch.float64 else GRAM_CHUNK
+    for i in range(0, R, chunk):
+        rows = slice(i, i + chunk)
+        Mt = M_rows[:, rows].double().mT
+        H.baddbmm_(Mt * w[:, None, rows], Mt.mT)
+        g.baddbmm_(Mt, r[:, rows, None])
+    # + lm I after the products: an f64 step's dual-warm-started tick can
+    # turn on the last bit of H (ROADMAP.md section 3)
+    H.diagonal(dim1=1, dim2=2).add_(lm)
+    return H.to(dtype), g[..., 0].to(dtype)
 
 
 def resolve_stiff_knobs(cfg):
@@ -174,12 +208,15 @@ def _check_supported(cfg, N):
     # value raises rather than being dropped
     ported = {"chol_impl": ("auto", ("auto", "fused", "pallas")),
               "lin_impl": ("auto", ("auto", "pallas")), "fused_sdf": (True, (True,)),
+              # IEEE f32 on the card computes what f32x3 emulates on the TPU
+              "sdf_fused_dtype": ("f32x3", ("f32", "f32x3")),
               "qp_data_bf16": (False, (False,)), "qp_compute_dtype": (None, (None,))}
     bad = {k: s.get(k, d) for k, (d, ok) in ported.items() if s.get(k, d) not in ok}
     if bad:
         raise NotImplementedError(
             f"solver settings not ported: {bad} (the XLA and custom linear-algebra "
-            "routes and the numerics-attribution hooks are queued in ROADMAP.md)")
+            "routes, the bf16 SDF modes and the numerics-attribution hooks are queued in "
+            "ROADMAP.md)")
     if str(s.dtype) not in _DTYPES:
         raise ValueError(f"unsupported solver dtype {s.dtype!r}")
 
@@ -197,7 +234,9 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
     if dev.type == "cuda" and dtype != torch.float32:
         raise NotImplementedError("the CUDA kernels run float32 only")
     if ocp.ny != ocp.model.ny:
-        raise NotImplementedError("extra stage cost rows need kernel 9 (queued in ROADMAP.md)")
+        raise NotImplementedError(
+            "extra stage cost rows (sdf_cost) are formulation extras, queued in ROADMAP.md "
+            "section 1 item 11")
     qp_iters, k_stiff, stiff_iters, ratio_cap = _budget_knobs(cfg, budget)
     nz = N * nu
     nh = ocp.nh
@@ -221,7 +260,6 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
     uh_all = torch.cat([uh.repeat(N), uhN])
     z1_all = torch.cat([z1_stage, zlN])
     z2_all = torch.cat([z2_stage, ZlN])
-    eye_nz = torch.eye(nz, dtype=dtype, device=dev)
 
     # the network in the solver dtype: packed for kernel 2, and as a module
     # for the terminal row (differentiated by autograd, as in JAX) and evals
@@ -235,6 +273,17 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
     def fov_node(x3, x_rest, p):
         return cheap(torch.cat([x3, x_rest], -1), p)
 
+    # linearization: kernel 1 where the model has a component-form residual
+    # (ocp.y is the model's: checked above), else kernel 9 for x+, A, B and
+    # torch.func for the residual rows, as the JAX step (sqp.py:282-310)
+    use_lin_y = ocp.model.y_lanes is not None
+
+    def y_node(x, u, p):
+        y_fn = lambda xv, uv: ocp.y(xv, uv, p)
+        Jyx, Jyu = jacfwd(y_fn, argnums=(0, 1))(x, u)
+        return y_fn(x, u), Jyx, Jyu
+
+    y_lin = vmap(y_node)
     fov_jac = vmap(jacfwd(fov_node, argnums=0))
     yN_jac = vmap(jacfwd(ocp.yN, argnums=0))
     hN_jac = vmap(jacrev(lambda x, p: ocp.h_term(x, p, net), argnums=0))
@@ -249,11 +298,16 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
         M = B * N
         XN_, PN_ = X[:, :N].reshape(M, nx), p[:, :N].reshape(M, -1)
 
-        # ---- 1. per-node linearization: kernel 1 ----
-        x_next, A, Bm, res, Jyx, Jyu = lin_kernels.lin_y_sens(
-            ocp.model, layout, XN_.contiguous(), U.reshape(M, nu).contiguous(),
-            dt.repeat(B).contiguous(), PN_,
-            inp.yref.to(dtype).reshape(M, -1).contiguous())
+        # ---- 1. per-node linearization: kernel 1, or kernel 9 + torch.func ----
+        UN_, dtN_ = U.reshape(M, nu).contiguous(), dt.repeat(B).contiguous()
+        yref = inp.yref.to(dtype).reshape(M, -1).contiguous()
+        if use_lin_y:
+            x_next, A, Bm, res, Jyx, Jyu = lin_kernels.lin_y_sens(
+                ocp.model, layout, XN_.contiguous(), UN_, dtN_, PN_, yref)
+        else:
+            x_next, A, Bm = lin_kernels.erk4_sens(ocp.model, XN_.contiguous(), UN_, dtN_)
+            y_val, Jyx, Jyu = y_lin(XN_, UN_, PN_)
+            res = y_val - yref
         ny = res.shape[-1]
         x_next = x_next.reshape(B, N, nx)
         A, Bm = A.reshape(B, N, nx, nx), Bm.reshape(B, N, nx, nu)
@@ -297,9 +351,7 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
                             torch.full((B, (N + 1) * nx), lm, dtype=dtype, device=dev)], 1)
         r_rows = torch.cat([(Ws * res_c).reshape(B, N * ny), WN * resN_c,
                             lm * e_all.reshape(B, (N + 1) * nx)], 1)
-        Mt = M_rows.transpose(1, 2)
-        H = torch.bmm(Mt * w_rows[:, None, :], M_rows) + lm * eye_nz
-        g = torch.bmm(Mt, r_rows[..., None])[..., 0]
+        H, g = gram(M_rows, w_rows, r_rows, lm, dtype)
 
         C = torch.cat([C_st.reshape(B, N * nh, nz), JhxN @ EN], 1)
         c0 = torch.cat([c_st.reshape(B, N * nh), hN_val + (JhxN @ eN[..., None])[..., 0]], 1)

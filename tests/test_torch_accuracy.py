@@ -70,7 +70,7 @@ def test_f32_plain_path_dual_warm_start_on_goldens():
     The cold solve, the steady ticks and every warm tick but one meet the
     JAX package's CI gate.  That one, scenario 11's first warm tick, stays
     far from the f64 golden in the JAX package's own f32 step too; there
-    the port is held to the largest f32 reading on it (DWS_SHORT_TICK_MAX).
+    the port is held to the largest f32 reading on it (SHORT_TICKS).
     Every status OK."""
     from sdf_nmpc_tpu_torch.utils import accuracy as acc
 
@@ -78,7 +78,7 @@ def test_f32_plain_path_dual_warm_start_on_goldens():
     cold = acc.check_accuracy(device="cpu", solver_over=over)
     warm = acc.check_warm_accuracy(device="cpu", budget="warm", solver_over=over)
     steady = acc.check_warm_accuracy(device="cpu", budget="steady", solver_over=over)
-    short = acc.DWS_SHORT_TICK
+    short, limit = acc.short_tick("att", dual_warm_start=True)
     g = acc.replay_gates(warm, steady, exempt=short)
     jerr = _jax_dual_ws_replay(("warm", "steady"))
     jg = acc.replay_gates({"err": jerr["warm"]}, {"err": jerr["steady"]}, exempt=short)
@@ -95,5 +95,40 @@ def test_f32_plain_path_dual_warm_start_on_goldens():
     assert acc.ci_gate_ok(g["steady_mean"], g["steady_max"]), g
     assert acc.ci_gate_ok(g["warm_mean"], g["warm_max"]), g
     assert acc.ci_gate_ok(jg["warm_mean"], jg["warm_max"]), jg
-    assert acc.CI_MAX < jg["exempt_err"] <= acc.DWS_SHORT_TICK_MAX, jg  # the JAX shortfall
-    assert g["exempt_err"] <= acc.DWS_SHORT_TICK_MAX, g
+    assert acc.CI_MAX < jg["exempt_err"] <= limit, jg  # the JAX shortfall
+    assert g["exempt_err"] <= limit, g
+
+
+def test_f32_floor_report_splits_the_error_by_stage(capsys):
+    """utils/f32_floor.py on the CPU, rates' 8 cold scenarios at the
+    unscaled x0: one line per row of its docstring; the f64 step at the
+    oracle's ~1e-8, every f64 row with one stage in f32 below the CI gate's
+    max, and the f32 step with either Gram within the CI gate."""
+    from sdf_nmpc_tpu_torch.utils import accuracy as acc
+    from sdf_nmpc_tpu_torch.utils import f32_floor
+
+    f32_floor.report("rates", "cpu", jitters=(0.0,))
+    rows = {}
+    for line in capsys.readouterr().out.splitlines():
+        label, nums = line.split(": u0 mean ")
+        rows[label] = [float(v) for v in nums.split(" max ")]
+    f64 = [f"rates f64 step, {s} rounded to f32" for s in f32_floor.STAGES] + [
+        "rates f64 step, QP data rounded to f32", "rates f64 step, QP solved in f32"]
+    assert list(rows) == ["rates f32 step, x0 (1 +0)", "rates f32 step, f32 Gram, x0 (1 +0)",
+                          "rates f64 step", *f64]
+    assert rows["rates f64 step"][1] < 1e-7
+    assert all(rows[k][1] < acc.CI_MAX for k in f64)
+    assert all(acc.ci_gate_ok(*rows[k]) for k in list(rows)[:2])
+
+
+def test_f32_floor_runs_on_the_card_unless_asked(monkeypatch):
+    """The diagnostic's entry point defaults to the card, as every entry
+    point of the port: with no CUDA device it raises before any work."""
+    import pytest
+    import torch
+
+    from sdf_nmpc_tpu_torch.utils import f32_floor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        f32_floor.main(["--model", "rates"])

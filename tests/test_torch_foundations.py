@@ -153,13 +153,17 @@ def test_erk4_with_sensitivities_matches_f64():
 
 
 def test_model_registry():
+    """All six quad families build, with the JAX package's dims and names;
+    an unknown key raises and names the families."""
+    from sdf_nmpc_tpu.models import make_model as jmake
     from sdf_nmpc_tpu_torch.models import make_model
 
-    _, t = _cfgs()
-    for key in ("acc", "att_tau", "rates", "wrench", "props"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_model(t.replace(mpc=dict(model=key)))
-    with pytest.raises(ValueError):
+    j, t = _cfgs()
+    for key in ("att", "acc", "att_tau", "rates", "wrench", "props"):
+        jm = jmake(j.replace(mpc=dict(model=key)))
+        tm = make_model(t.replace(mpc=dict(model=key)))
+        assert (tm.name, tm.nx, tm.nu, tm.ny, tm.nyN) == (jm.name, jm.nx, jm.nu, jm.ny, jm.nyN)
+    with pytest.raises(ValueError, match="props"):
         make_model(t.replace(mpc=dict(model="nope")))
 
 

@@ -181,3 +181,86 @@ def test_stiff_factor_solve_and_resolve_kernels_match_plain(cuda_device):
     assert _rel(X, Xp) < 2e-3 and _rel(Xs, Xsp) < 1e-4
     assert _rel(L, Lp) < 1e-5 and _rel(Lt, Ltp) < 1e-4
     assert _rel(X2, stiff_resolve_plain(Lp, Xsp, Ltp, s["Cs"], s["R2"])) < 2e-3
+
+
+def _family(model):
+    """(model spec, parameter layout) of a quad family; wrench with the
+    torque limit 2.0 of the accuracy workload."""
+    from sdf_nmpc_tpu_torch.models import make_model
+    from sdf_nmpc_tpu_torch.params import ParamLayout
+    from sdf_nmpc_tpu_torch.utils.accuracy import family_config
+    from sdf_nmpc_tpu_torch.config import default_config
+
+    cfg = family_config(default_config(), model)
+    return make_model(cfg), ParamLayout.from_cfg(cfg)
+
+
+def _points(M, nx):
+    """M random (x, u, dt): tilts within ~25 degrees (att_tau divides by
+    cos(pitch)), body rates ~0.5, inputs inside the box."""
+    x = RNG.normal(size=(M, nx)) * 0.5
+    x[:, 3:7] = np.array([1.0, 0, 0, 0]) + RNG.normal(size=(M, 4)) * 0.2
+    u = RNG.uniform(-0.9, 0.9, size=(M, 4))
+    u[:, 0] = RNG.uniform(0.1, 0.9, size=M)
+    return x, u, RNG.uniform(0.01, 0.1, size=M)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["rates", "wrench", "props"])
+def test_erk4_sens_kernel_matches_plain(cuda_device, model):
+    """Kernel 9 on 4099 random points (not a block multiple): x+, A and B
+    each within 1e-4 (1 + its largest magnitude) of the plain version (props'
+    B reaches ~14: the wp^2 terms)."""
+    from sdf_nmpc_tpu_torch.ops.lin_kernels import erk4_sens, erk4_sens_plain
+
+    spec, _ = _family(model)
+    args = [t32(a).to(cuda_device) for a in _points(4099, spec.nx)]
+    n0, n1 = _count("erk4_sens"), _count("lin_y_sens")
+    got = erk4_sens(spec, *args)
+    assert (_count("erk4_sens"), _count("lin_y_sens")) == (n0 + 1, n1)
+    f64 = erk4_sens_plain(spec, *[a.double() for a in args])
+    for name, g, w, r in zip(("x+", "A", "B"), got, erk4_sens_plain(spec, *args), f64):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape
+        print(f"{model} {name}: kernel - plain f32 {max_abs(g, w):.3e}, kernel - f64 "
+              f"{max_abs(g, r):.3e}, plain f32 - f64 {max_abs(w, r):.3e}")
+        assert max_abs(g, w) <= 1e-4 * (1 + float(w.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["acc", "att_tau"])
+def test_lin_y_sens_kernel_matches_plain_families(cuda_device, model):
+    """Kernel 1's acc and att_tau instantiations on 4099 random points, each
+    output (x+, A, B, res, Jyx, Jyu) held against the plain version in f64
+    on the same f32 inputs: the kernel's distance to it within chip_smoke's
+    absolute LIN_TOL, or within twice the plain f32 version's own distance
+    to it where that is larger.  A faulty derivative rule (atan2_, asin_clip_
+    of csrc/dual.cuh) lands orders of magnitude beyond either.  att_tau's A
+    carries the lag's 1 / TAU and reaches ~8 here.  On an H100 the kernel
+    and the plain f32 version lay 1.63e-4 apart on it, on either side of
+    f64: kernel 9.68e-5 and plain f32 7.61e-5 from it (x+ 2.3e-6 / 1.2e-6,
+    Jyx 9.4e-6 / 9.4e-6); acc's outputs within 3.6e-7 of f64, both."""
+    from sdf_nmpc_tpu_torch.ops.lin_kernels import lin_y_sens, lin_y_sens_plain
+
+    spec, lay = _family(model)
+    M = 4099
+    x, u, dt = _points(M, 10)
+    p = np.zeros((M, lay.np_total))
+    qd = RNG.normal(size=(M, 4))
+    p[:, list(lay.q_d)] = qd / np.linalg.norm(qd, axis=1, keepdims=True)
+    args = [t32(a).to(cuda_device) for a in (x, u, dt, p, RNG.normal(size=(M, 11)))]
+    n0, n1 = _count("lin_y_sens"), _count("erk4_sens")
+    got = lin_y_sens(spec, lay, *args)
+    assert (_count("lin_y_sens"), _count("erk4_sens")) == (n0 + 1, n1)
+    plain = lin_y_sens_plain(spec, *args)
+    f64 = lin_y_sens_plain(spec, *[a.double() for a in args])
+    names, tols = ("x+", "A", "B", "res", "Jyx", "Jyu"), (1e-4, 1e-4, 1e-4, 2e-4, 1e-4, 1e-4)
+    for name, g, w, r, tol in zip(names, got, plain, f64, tols):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape == r.shape
+        e_k, e_p = max_abs(g, r), max_abs(w, r)
+        print(f"{model} {name}: kernel - f64 {e_k:.3e}, plain f32 - f64 {e_p:.3e}, "
+              f"kernel - plain f32 {max_abs(g, w):.3e}, max |f64| {float(r.abs().max()):.3g}")
+        assert e_k <= max(tol, 2 * e_p), name
+
+
+def max_abs(a, b):
+    return float((a.double() - b.double()).abs().max())

@@ -206,7 +206,8 @@ def test_unsupported_settings_raise():
 
 @pytest.mark.parametrize("over", [{"chol_impl": "xla"}, {"chol_impl": "custom"},
                                   {"lin_impl": "xla"}, {"fused_sdf": False},
-                                  {"qp_data_bf16": True}])
+                                  {"qp_data_bf16": True}, {"sdf_fused_dtype": "bf16"},
+                                  {"sdf_fused_dtype": "mixed"}])
 def test_unported_knob_values_raise(over):
     """A solver knob the port reads either means what it means in the JAX
     package or raises and names ROADMAP.md: none is read and dropped."""
