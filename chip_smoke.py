@@ -31,9 +31,13 @@ failure raises and exits non-zero before the result line:
    the goldens, with the default settings and with dual_warm_start;
 6. fused main path: B=8192, one cold step then 20 chained steady steps
    ended by one synchronize, launch counts set to 0 just before and read
-   just after; solves/s, ms per step, peak memory, the per-step spread;
+   just after; solves/s, ms per step, the time at which the host had
+   issued the 20 steps (the last step call returned, before the
+   synchronize), peak memory, the per-step spread;
 7. where the time goes on it (torch.profiler busy share) and per-kernel
-   numbers for kernels 1-4 on the inputs a steady step gives them;
+   numbers for kernels 1-4 on the inputs a steady step gives them; for
+   kernel 4 also each launch's time (warm phase, stiff phase), its launch
+   geometry (threads, shared bytes, resident blocks per SM);
 8. composed main path: the same at B=8192 with dual_warm_start (one cold
    step then 20 chained steady steps), its busy share, and per-kernel
    numbers for kernels 5-8, the library calls beside kernels 5 and 6;
@@ -57,15 +61,33 @@ failure raises and exits non-zero before the result line:
    promotion, no failure, clipped finite ``get_cmd_props``, kernel 9
    launched and kernel 1 not.
 
-The last lines are the ``kernels`` JSON (all nine kernels; the rows of
-kernels 1 and 9 carry each model's numbers under ``per_model``, and at top
-level att's and props'), the card's name and power limit, and
+The last lines are the ``kernels`` JSON (all nine kernels, each with its
+per-launch times ``launch_ms``; the rows of kernels 1 and 9 carry each
+model's numbers under ``per_model``, and at top level att's and props';
+kernel 4's row ``launch_k_s`` and ``geometry``), the card's
+name and power limit, and
 ``{"ok": true, "device": {...}}``.
+
+Two options run a part alone, to compare source trees on one card (they
+print no result line):
+
+    python3 chip_smoke.py --ip-builds DIR [DIR ...]
+        kernel 4 built from each DIR's ip_phase.cu (and the headers beside
+        it) against the package's build, on the launches of one steady step
+        of the fused main path: each launch's time, the builds interleaved
+        round by round, and each build's outputs against the package's, bit
+        for bit;
+    python3 chip_smoke.py --composed
+        phases 1, 2, 8 (without the kernel numbers) and 9: the composed main
+        path and the ``Nmpc`` controller; copied into another tree, the same
+        phases of that tree's package.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1012,6 +1034,7 @@ def phase_main_path(dev, card, over=None, per_step=None, label="fused path", mod
     t0 = time.perf_counter()
     for _ in range(N_STEADY):
         res = steady(res.state, inputs)
+    issued = time.perf_counter() - t0  # the last step call has returned: host issue time
     torch.cuda.synchronize()
     span = time.perf_counter() - t0
     counts = dict(_lib.launch_counts)
@@ -1038,8 +1061,9 @@ def phase_main_path(dev, card, over=None, per_step=None, label="fused path", mod
     if dws and res.state.qp_duals is None:
         raise AssertionError(f"{label}: the state carries no duals")
     log(f"{label}: {N_STEADY} chained steady steps in {span * 1e3:.3f} ms: "
-        f"{t_step * 1e3:.3f} ms/step, {MAIN_B * N_STEADY / span:.1f} solves/s; "
-        f"peak memory {peak / 2**30:.3f} GiB; card {card}")
+        f"{t_step * 1e3:.3f} ms/step, {MAIN_B * N_STEADY / span:.1f} solves/s; the host "
+        f"issued them in {issued * 1e3:.3f} ms ({issued / N_STEADY * 1e3:.3f} ms/step, "
+        f"{issued / span:.1%} of the span); peak memory {peak / 2**30:.3f} GiB; card {card}")
 
     # secondary: the same steps one at a time, each ended by a synchronize
     times = []
@@ -1099,6 +1123,19 @@ def phase_kernel_numbers(counts, t_step, steady, state, inputs, card):
         "ip_phase": (ip_kernel.ip_phase, lambda a: ip_kernel.ip_phase_plain(*a), ip_cost, None),
     }
     rows = kernel_rows(runs, calls, counts, errs, peaks, part)
+    ip_row = next(r for r in rows if r["name"] == "ip_phase")
+    # kernel 4: per launch (the warm phase, then the stiff one) k_s and the
+    # launch geometry beside launch_ms
+    ip_row["launch_k_s"] = [a[2] for a in calls["ip_phase"]]
+    ip_row["geometry"] = []
+    for a, ms in zip(calls["ip_phase"], ip_row["launch_ms"]):
+        geo = ip_kernel.ip_phase_geometry(a[0][0].shape[-1], a[0][1].shape[1], a[2])
+        ip_row["geometry"].append(geo)
+        log(f"  ip_phase launch k_s={a[2]}, {a[3]} iterations: {ms:.4f} ms; {geo['threads']} "
+            f"threads and {geo['smem_bytes']} B of shared memory per block, "
+            f"{geo['blocks_per_sm']} blocks per SM")
+    log(f"  ip_phase {ip_row['ms']:.4f} ms/step (its first design took 97.26 ms on an H100 "
+        f"80GB HBM3 at 700 W, PERF.md section 6); card {card}")
     k_sum = sum(r["ms"] for r in rows)
     log(f"kernels 1-4: {k_sum:.3f} ms of the {t_step * 1e3:.3f} ms chained steady step "
         f"({k_sum / (t_step * 1e3):.1%}); card {card}")
@@ -1113,8 +1150,10 @@ def kernel_rows(runs, calls, counts, errs, peaks, part):
     for name, (kern, plain, cost, library) in runs.items():
         ms = plain_ms = lib_ms = 0.0
         ops_total = bytes_total = 0.0
+        launch_ms = []
         for a in calls[name]:
-            ms += cuda_ms(lambda: kern(*a), reps=5)
+            launch_ms.append(cuda_ms(lambda: kern(*a), reps=5))
+            ms += launch_ms[-1]
             plain_ms += cuda_ms(lambda: plain(a), reps=2)
             if library is not None:
                 lib_ms += cuda_ms(lambda: library(*a), reps=3)
@@ -1126,7 +1165,8 @@ def kernel_rows(runs, calls, counts, errs, peaks, part):
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": counts[name], "max_abs_err": errs[name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": lib_ms if library is not None else None})
+                     "library_ms": lib_ms if library is not None else None,
+                     "launch_ms": launch_ms})
         lib = f", library {lib_ms:.4f} ms" if library is not None else ""
         log(f"  {name:18s} {ms:9.4f} ms/step ({len(calls[name])} launches), plain "
             f"{plain_ms:9.3f} ms{lib}, bound {bound_ms:.4f} ms by {bound_by} ({ops_total:.3e} "
@@ -1407,12 +1447,103 @@ def phase_families(dev, card):
     return per_kernel
 
 
-def main() -> int:
+def build_ip_variant(src_dir: str, out_dir) -> str:
+    """nvcc (the package's flags) of src_dir/ip_phase.cu into a library."""
+    from sdf_nmpc_tpu_torch.ops import _lib
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    obj, lib = out_dir / "ip_phase.o", out_dir / "libip_phase.so"
+    nvcc = _lib._nvcc()
+    for cmd in ([nvcc, *_lib.ARCH, *_lib.NVCC_FLAGS, "-c", os.path.join(src_dir, "ip_phase.cu"),
+                 "-o", str(obj)],
+                [nvcc, *_lib.ARCH, "-shared", "-o", str(lib), str(obj)]):
+        run = subprocess.run(cmd, capture_output=True, text=True)
+        for line in (run.stdout + run.stderr).splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  {src_dir}: {line.strip()}")
+        if run.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src_dir}")
+    return str(lib)
+
+
+def phase_ip_builds(dev, card, dirs, rounds=3):
+    """Kernel 4 from other source trees against the package's build, on the
+    launches of one steady step of the fused main path (B=MAIN_B)."""
+    import ctypes
+
+    from sdf_nmpc_tpu_torch.ops import _lib, ip_kernel
+    from sdf_nmpc_tpu_torch.solver import init_state, make_rti_step
+    from sdf_nmpc_tpu_torch.utils import accuracy
+
+    cfg, ocp, layout, _ = accuracy.build_setup(device=dev)
+    inputs = bench_inputs(ocp, cfg, layout, MAIN_B, SEED, dev)
+    state = make_rti_step(ocp, cfg, budget="cold", with_evals=False)(
+        init_state(ocp, inputs.x0), inputs).state
+    with Capture() as cap:
+        make_rti_step(ocp, cfg, budget="steady", with_evals=False)(state, inputs)
+    calls = cap.args("ip_phase")
+    libs = {"package": _lib.library()}
+    for i, d in enumerate(dirs):
+        lib = ctypes.CDLL(build_ip_variant(d, _lib.BUILD / f"variant-{os.getpid()}-{i}"))
+        for name in ("ip_phase_launch", "ip_phase_geometry"):
+            getattr(lib, name).argtypes = _lib._SIGNATURES[name]
+            getattr(lib, name).restype = ctypes.c_int
+        libs[d] = lib
+    saved = _lib.library
+    times = {name: [[] for _ in calls] for name in libs}
+    report = {}
+    try:
+        for r in range(rounds):
+            for name, lib in libs.items():
+                _lib.library = lambda _l=lib: _l
+                for j, a in enumerate(calls):
+                    times[name][j].append(cuda_ms(lambda: ip_kernel.ip_phase(*a), reps=5))
+        want = []
+        for name, lib in libs.items():
+            _lib.library = lambda _l=lib: _l
+            outs = [ip_kernel.ip_phase(*a) for a in calls]
+            if name == "package":
+                want = outs
+            diff = max(max_abs(g, w) for o, wo in zip(outs, want) for g, w in zip(o, wo))
+            same = all(torch.equal(g, w) for o, wo in zip(outs, want) for g, w in zip(o, wo))
+            geo = [ip_kernel.ip_phase_geometry(a[0][0].shape[-1], a[0][1].shape[1], a[2])
+                   for a in calls]
+            report[name] = {"launch_k_s": [a[2] for a in calls], "launch_ms": times[name],
+                            "geometry": geo, "bitwise_equal": same, "max_abs_diff": diff}
+            for (a, ms, g) in zip(calls, times[name], geo):
+                log(f"ip build {name}: launch k_s={a[2]}, {a[3]} iterations: "
+                    f"{', '.join(f'{t:.4f}' for t in ms)} ms over {rounds} rounds; "
+                    f"{g['smem_bytes']} B, {g['blocks_per_sm']} blocks per SM")
+            log(f"ip build {name}: outputs {'equal to' if same else 'differ from'} the "
+                f"package's build bit for bit (max diff {diff:.3e}); card {card}")
+    finally:
+        _lib.library = saved
+    log(json.dumps({"ip_builds": report}))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Run the port's main paths on one CUDA card.")
+    ap.add_argument("--ip-builds", nargs="+", metavar="DIR",
+                    help="time kernel 4 built from each DIR against the package's build, then "
+                         "stop")
+    ap.add_argument("--composed", action="store_true",
+                    help="run only the composed main path and Nmpc, then stop")
+    args = ap.parse_args(argv)
     card = phase_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     phase_build()
+    if args.ip_builds:
+        phase_ip_builds(dev, card, args.ip_builds)
+        return 0
+    if args.composed:
+        _, t_step, steady, state, inputs = phase_main_path(
+            dev, card, over=DWS, per_step=composed_per_step, label="composed path")
+        phase_profile(steady, state, inputs, t_step, card, label="composed path")
+        del steady, state, inputs
+        phase_nmpc(dev, card)
+        return 0
     phase_kernel_checks(dev)
     phase_composed_checks(dev)
     phase_accuracy(dev)

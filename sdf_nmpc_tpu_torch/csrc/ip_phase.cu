@@ -3,40 +3,80 @@
 //
 // Replaces: sdf_nmpc_tpu/ops/ip_kernel.py _ip_phase_kernel (:78), with the
 // Cholesky / tri-solve / Woodbury helpers of ops/qp_kernels.py (:72, :138,
-// :284) inside (qp_device.cuh).  Semantics follow that kernel and
+// :284) inside (here ip_dense.cuh).  Semantics follow that kernel and
 // solver/qp.py line by line: noise-aware gap floors, KKT residuals, the
 // best-iterate merit at body entry (gated off at global iteration 0), the
-// mild-row ratio cap, top-k_s stiff rows by argmax-and-mask on the RAW eta
-// (ties to the lowest index), the Newton matrix A = H + C' diag(eta_mild) C
-// + diag(rb) with a 10 eps (|d| + 1) diagonal jitter, the predictor rhs
-// riding as row k_s of the (k_s + 1)-RHS tri-solve, T = Cs Xs' + diag(1/eta_s)
-// jittered and factored, non-finite directions zeroed per scenario, tau =
-// 0.995, sigma = clip((mu_aff / mu)^3, 1e-4, 1), the mu_min / p_floor /
-// d_floor floors, and the tail sum of the last n_tail iterates.
+// mild-row ratio cap, top-k_s stiff rows on the RAW eta in argmax_better's
+// order (NaN first, ties to the lower index), the Newton matrix A = H + C'
+// diag(eta_mild) C + diag(rb) with a 10 eps (|d| + 1) diagonal jitter, the
+// predictor rhs riding as row k_s of the (k_s + 1)-RHS tri-solve, T = Cs Xs' +
+// diag(1/eta_s) jittered and factored, non-finite directions zeroed per
+// scenario, tau = 0.995, sigma = clip((mu_aff / mu)^3, 1e-4, 1), the mu_min /
+// p_floor / d_floor floors, and the tail sum of the last n_tail iterates.
+// H is read by its lower triangle (it is symmetric), as the Cholesky reads A.
 //
-// Bound on this card: operations.  Per iteration and scenario the work is
-// ~1 M flops (A build ~3 nz^2 nc / 2, Cholesky nz^3 / 3, the (k_s+1)- and
-// 1-RHS sweeps), against ~0.45 GB read once per phase at B=8192.  What
-// holds this first kernel far above that bound is the sequential chain of
-// the factorization and solves: two __syncthreads per column step, with
-// few threads busy in each.
+// Bound on this card: operations, 1.340 ms per B=8192 steady step for the two
+// launches (chip_smoke.py::ip_ops_per_iter, ~0.8 MFLOP per iteration and
+// scenario; H and C, ~0.45 GB, are read once per phase, ~0.13 ms).  The step
+// is latency-bound, not FLOP-bound: an 80 x 80 factorization per scenario is a
+// chain of small dependent steps.  So the arithmetic stays IEEE f32 on the CUDA
+// cores (no fast math, no approximate rsqrt or division, no TF32 / bf16
+// tensor-core products): the interior point is precision-critical, and tensor
+// cores would not shorten the chain.
 //
-// Design: one thread block per scenario, NT=256 threads.  H, C, the Newton
-// matrix A (factored in place), the multi-RHS block [Cs; rhs] and T all stay
-// in shared memory for all n_iters iterations (78 KB at nz=80, nc=63,
-// k_s=8: two blocks per SM), so H and C are read from device memory once
-// per phase.  Thread t owns element t of every nz-vector and row t of every
-// nc-vector in registers (nz, nc <= NT); matrix-vector products go through
-// shared copies of the vectors.  A simple kernel that is right comes first:
-// batching several scenarios per block, warp-level factorization steps and
-// a left-looking blocked Cholesky are later levers.
+// The first design took 97.26 ms per step on an H100 80GB HBM3 at 700 W
+// (chip_smoke.py): one 256-thread block per scenario, 78 KB of shared memory
+// (2 blocks per SM), and about 850 block barriers per iteration (2 per column
+// of the Cholesky and of each tri-solve sweep, 16 for top-k by argmax-and-mask,
+// ~30 in reductions) with one or a few threads busy between most of them, T
+// factored and the Woodbury substitutions run on thread 0.
+//
+// This design: one 128-thread block (4 warps) per scenario, so that 4 blocks
+// fit on an SM; thread t owns elements t, t + 128 of every nz- and nc-vector
+// in registers (EPT = 1 or 2 elements per thread).  Shared memory holds
+//   S  nz x (nz|1): H's strict lower triangle, transposed into the strict
+//      upper triangle, and the Newton matrix / its factor in the lower one;
+//      H's diagonal apart (so H is never copied per iteration),
+//   C  nc x (nz|1) (odd row stride: row and column walks are both free of
+//      bank conflicts), X (k_s+1) x (nz|1), T k_s x k_s, a few vectors;
+// the stiff rows of C are read through their indices, not copied.
+// 52.4 KB at nz=80, nc=63, k_s=8.  Per iteration:
+//   - the Newton matrix: 4 x 4 register tiles of the lower triangle, 16 FMAs
+//     per 8 shared loads;
+//   - Cholesky: blocked right-looking, panel 8 (ip_dense.cuh::chol_blocked),
+//     2 barriers per panel;
+//   - tri-solves: each right-hand side in one warp, in the blocked order of
+//     _tri_solve_lanes_blocked, no block barrier inside (faster on the card
+//     than the panel update split across the warps with a barrier per
+//     panel, even for one right-hand side: see ip_dense.cuh);
+//   - top-k_s by rank: each row counts the rows that beat it under
+//     argmax_better, rank < k_s is stiff at position rank (the same set in
+//     the same order as k_s rounds of argmax-and-mask), one barrier;
+//   - T factored and both Woodbury corrections in warp 0;
+//   - the reductions fused (merit and complementarity in one), one barrier
+//     each, and the end-of-iteration mu only in the last iteration.
+// About 34 block barriers per stiff iteration at nz=80 (20 in the Cholesky),
+// 31 per warm one, against about 850.
+//
+// Measured (chip_smoke.py, H100 80GB HBM3 at 700 W): 34.21 ms per B=8192
+// steady step, the warm launch (k_s=0, 11 iterations) 21.13 ms and the stiff
+// one (k_s=8, 4 iterations) 13.09 ms: 3.9% of the bound.  ptxas: 124
+// registers, no spills, for one element per thread (186 for two); 128
+// threads, 52,404 B of shared memory per block and 4 resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  What remains is latency:
+// the pivot chain of the factorization and the single-warp solves, with the
+// SM shared by 4 blocks.
 
 #include "common.cuh"
-#include "qp_device.cuh"
+#include "ip_dense.cuh"
 
 namespace {
 
-constexpr int NT = 256;
+constexpr int NT = 128;
+constexpr int NW = NT / 32;
+constexpr int RED_WORDS = 2 * NW * 8;
+constexpr int WSCR_WORDS = NW * (ipd::PB * ipd::PB + ipd::PB);
+constexpr size_t SMEM_LIMIT = 232448;  // opt-in shared memory of one block (sm_90)
 
 struct PhaseArgs {
   // data (batch-first, contiguous): H (B,nz,nz), C (B,nc,nz), g/lb/ub (B,nz),
@@ -54,311 +94,531 @@ __device__ __forceinline__ float max_step(float v, float dv) {
   return dv < 0.f ? -v / dv : CUDART_INF_F;
 }
 
-__global__ void __launch_bounds__(NT) ip_phase_kernel(PhaseArgs a) {
+// per-element state carried across iterations
+struct ZState { float g, lb, ub, dz, nl, nu, bdz, dzs; };
+struct CState { float c0, lh, uh, z1, z2, sl, su, ll, lu, gl, gu; };
+
+template <int EPT, int MINB>
+__global__ void __launch_bounds__(NT, MINB) ip_phase_kernel(PhaseArgs a) {
   extern __shared__ float smem[];
   const int nz = a.nz, nc = a.nc, ks = a.ks;
-  const int b = blockIdx.x, t = threadIdx.x;
-  const bool hz = t < nz, hc = t < nc;
+  const int b = blockIdx.x, t = threadIdx.x, warp = t >> 5;
   const float eps = 1.1920928955078125e-07f;  // f32 machine epsilon
   const float n_terms = float(2 * nz + 4 * nc);
+  const int ld = nz | 1;  // row stride of S, C and X
 
-  float* sH = smem;                 // nz*nz
-  float* sA = sH + nz * nz;         // nz*nz
-  float* sC = sA + nz * nz;         // nc*nz
-  float* sX = sC + nc * nz;         // (ks+1)*nz: [Cs' solves; rhs]
-  float* sCs = sX + (ks + 1) * nz;  // ks*nz
-  float* sT = sCs + ks * nz;        // ks*ks
-  float* vz = sT + ks * ks;         // nz: shared z-vector
-  float* vc = vz + nz;              // nc: shared c-vector
-  float* vu = vc + nc;              // ks: Woodbury scratch
-  float* vds = vu + ks;             // ks: exact stiff coefficients
-  float* red = vds + ks;            // 2*NT/32 reduction scratch
-  int* sidx = reinterpret_cast<int*>(red + 2 * (NT / 32));  // ks
+  float* S = smem;                 // nz * ld: H (strict upper), A / L (lower)
+  float* dH = S + nz * ld;         // nz: H's diagonal
+  float* Cm = dH + nz;             // nc * ld
+  float* X = Cm + nc * ld;         // (ks+1) * ld: [Cs' solves; rhs]
+  float* T = X + (ks + 1) * ld;    // ks * ks
+  float* vz = T + ks * ks;         // nz: shared z-vector
+  float* vc = vz + nz;             // nc: shared c-vector
+  float* v2 = vc + nc;             // nc: the right-hand sides' c-vector
+  float* vm = v2 + nc;             // nc: raw eta of the stiff-row ranking
+  float* vds = vm + nc;            // ks: exact stiff coefficients
+  float* u = vds + ks;             // ks: Woodbury scratch
+  float* red = u + ks;             // RED_WORDS: reduction scratch
+  float* wscr = red + RED_WORDS;   // WSCR_WORDS: the factorization's warp scratch
+  int* sidx = reinterpret_cast<int*>(wscr + WSCR_WORDS);  // ks: stiff rows in order
+  float* xr = X + ks * ld;         // the predictor / corrector solve
+  int slot = 0;
 
-  const size_t zoff = size_t(b) * nz, coff = size_t(b) * nc;
-  for (int i = t; i < nz * nz; i += NT) sH[i] = a.H[size_t(b) * nz * nz + i];
-  for (int i = t; i < nc * nz; i += NT) sC[i] = a.C[size_t(b) * nc * nz + i];
-
-  float g = 0.f, lb = 0.f, ub = 0.f, dz = 0.f, nl = 0.f, nu = 0.f, bdz = 0.f, dzs = 0.f;
-  if (hz) {
-    g = a.g[zoff + t]; lb = a.lb[zoff + t]; ub = a.ub[zoff + t];
-    dz = a.dz[zoff + t]; nl = a.nl[zoff + t]; nu = a.nu[zoff + t];
-    bdz = a.bdz[zoff + t]; dzs = a.dzs[zoff + t];
+  {
+    const float* Hb = a.H + size_t(b) * nz * nz;
+    for (int idx = t; idx < nz * nz; idx += NT) {
+      const int r = idx / nz, c = idx % nz;
+      if (c < r) S[c * ld + r] = Hb[idx];
+      else if (c == r) dH[r] = Hb[idx];
+    }
+    const float* Cb = a.C + size_t(b) * nc * nz;
+    for (int idx = t; idx < nc * nz; idx += NT) Cm[(idx / nz) * ld + idx % nz] = Cb[idx];
   }
-  float c0 = 0.f, lh = 0.f, uh = 0.f, z1 = 0.f, z2 = 0.f;
-  float sl = 1.f, su = 1.f, ll = 0.f, lu = 0.f, gl = 0.f, gu = 0.f;
-  if (hc) {
-    c0 = a.c0[coff + t]; lh = a.lh[coff + t]; uh = a.uh[coff + t];
-    z1 = a.z1[coff + t]; z2 = a.z2[coff + t];
-    sl = a.sl[coff + t]; su = a.su[coff + t]; ll = a.ll[coff + t]; lu = a.lu[coff + t];
-    gl = a.gl[coff + t]; gu = a.gu[coff + t];
+
+  ZState z[EPT];
+  CState c[EPT];
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int i = t + e * NT;
+    const size_t zo = size_t(b) * nz + i, co = size_t(b) * nc + i;
+    z[e] = ZState{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (i < nz)
+      z[e] = ZState{a.g[zo], a.lb[zo], a.ub[zo], a.dz[zo], a.nl[zo], a.nu[zo], a.bdz[zo],
+                    a.dzs[zo]};
+    c[e] = CState{0.f, 0.f, 0.f, 0.f, 0.f, 1.f, 1.f, 0.f, 0.f, 0.f, 0.f};
+    if (i < nc)
+      c[e] = CState{a.c0[co], a.lh[co], a.uh[co], a.z1[co], a.z2[co], a.sl[co], a.su[co],
+                    a.ll[co], a.lu[co], a.gl[co], a.gu[co]};
   }
   float best_m = a.bm[b];
   float mu = a.mu[b];
   __syncthreads();
 
   for (int it = 0; it < a.n_iters; ++it) {
-    // ---- gaps with cancellation-noise floors ----
-    if (hz) vz[t] = dz;
-    __syncthreads();
-    float w = 0.f;
-    if (hc) {
-      float s = 0.f;
-      for (int j = 0; j < nz; ++j) s += sC[t * nz + j] * vz[j];
-      w = c0 + s;
+    // ---- shared copies of dz and lam_l - lam_u ----
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = t + e * NT;
+      if (i < nz) vz[i] = z[e].dz;
+      if (i < nc) vc[i] = c[e].ll - c[e].lu;
     }
-    const float tl = fmaxf(w + sl - lh, 4.f * eps * (1.f + fabsf(w) + sl));
-    const float tu = fmaxf(uh + su - w, 4.f * eps * (1.f + fabsf(w) + su));
-    const float bl = fmaxf(dz - lb, 4.f * eps * (1.f + fabsf(dz)));
-    const float bu = fmaxf(ub - dz, 4.f * eps * (1.f + fabsf(dz)));
+    __syncthreads();
 
-    // ---- KKT stationarity residuals ----
-    float Hdz = 0.f;
-    if (hz)
-      for (int j = 0; j < nz; ++j) Hdz += sH[t * nz + j] * vz[j];
-    if (hc) vc[t] = ll - lu;
-    __syncthreads();
-    float r_z = 0.f;
-    if (hz) {
-      float ctv = 0.f;
-      for (int i = 0; i < nc; ++i) ctv += sC[i * nz + t] * vc[i];
-      r_z = Hdz + g - ctv - nl + nu;
+    // ---- gaps with cancellation-noise floors; KKT stationarity residuals ----
+    float w[EPT], tl[EPT], tu[EPT], bl[EPT], bu[EPT], Hdz[EPT], r_z[EPT], r_sl[EPT],
+        r_su[EPT];
+    float sums[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // merit terms, then complementarity
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = t + e * NT;
+      const bool hz = i < nz, hc = i < nc;
+      const ZState& Z = z[e];
+      const CState& K = c[e];
+      float s = 0.f;
+      if (hc) {
+        const float* row = Cm + i * ld;
+        for (int j = 0; j < nz; ++j) s += row[j] * vz[j];
+      }
+      w[e] = K.c0 + s;
+      tl[e] = fmaxf(w[e] + K.sl - K.lh, 4.f * eps * (1.f + fabsf(w[e]) + K.sl));
+      tu[e] = fmaxf(K.uh + K.su - w[e], 4.f * eps * (1.f + fabsf(w[e]) + K.su));
+      bl[e] = fmaxf(Z.dz - Z.lb, 4.f * eps * (1.f + fabsf(Z.dz)));
+      bu[e] = fmaxf(Z.ub - Z.dz, 4.f * eps * (1.f + fabsf(Z.dz)));
+      float h = 0.f;
+      r_z[e] = 0.f;
+      if (hz) {
+        for (int j = 0; j < nz; ++j) {
+          const float hij = j == i ? dH[i] : S[j < i ? j * ld + i : i * ld + j];
+          h += hij * vz[j];
+        }
+        float ctv = 0.f;
+        for (int l = 0; l < nc; ++l) ctv += Cm[l * ld + i] * vc[l];
+        r_z[e] = h + Z.g - ctv - Z.nl + Z.nu;
+      }
+      Hdz[e] = h;
+      r_sl[e] = K.z1 + K.z2 * K.sl - K.ll - K.gl;
+      r_su[e] = K.z1 + K.z2 * K.su - K.lu - K.gu;
+      const float vl = fmaxf(K.lh - w[e], 0.f), vu_ = fmaxf(w[e] - K.uh, 0.f);
+      if (hz) {
+        sums[0] += Z.dz * h;
+        sums[1] += Z.g * Z.dz;
+        sums[3] += (Z.dz - Z.lb) * Z.nl + (Z.ub - Z.dz) * Z.nu;
+      }
+      if (hc) {
+        sums[2] += K.z1 * (vl + vu_) + 0.5f * K.z2 * (vl * vl + vu_ * vu_);
+        sums[4] += (w[e] + K.sl - K.lh) * K.ll + (K.uh + K.su - w[e]) * K.lu + K.sl * K.gl +
+                   K.su * K.gu;
+      }
     }
-    const float r_sl = z1 + z2 * sl - ll - gl;
-    const float r_su = z1 + z2 * su - lu - gu;
+    block_sum<NT, 5>(sums, red, slot);
 
     // ---- best-iterate merit at entry (gate excludes the zero step) ----
     {
-      const float vl = fmaxf(lh - w, 0.f), vu_ = fmaxf(w - uh, 0.f);
-      float2 part = make_float2(hz ? dz * Hdz : 0.f, hz ? g * dz : 0.f);
-      const float pen = hc ? z1 * (vl + vu_) + 0.5f * z2 * (vl * vl + vu_ * vu_) : 0.f;
-      const float2 s2 = block_sum2<NT>(part, red);
-      const float s3 = block_sum<NT>(pen, red);
-      const float m_cur = 0.5f * s2.x + s2.y + s3;
+      const float m_cur = 0.5f * sums[0] + sums[1] + sums[2];
       if (m_cur < best_m && (a.it0 + it) > 0) {
-        bdz = dz;
+#pragma unroll
+        for (int e = 0; e < EPT; ++e) z[e].bdz = z[e].dz;
         best_m = m_cur;
       }
     }
+    const float mu_cur = (sums[3] + sums[4]) / n_terms;
 
-    // ---- barrier ratios + stiff-row split ----
-    const float ql_raw = hc ? ll / tl : 0.f, qu_raw = hc ? lu / tu : 0.f;
-    const float pl_raw = hc ? gl / sl : 0.f, pu_raw = hc ? gu / su : 0.f;
-    int my_s = -1;  // position of this row among the stiff rows, or -1
+    // ---- barrier ratios + stiff rows by rank of the raw eta ----
+    float ql_raw[EPT], qu_raw[EPT], pl_raw[EPT], pu_raw[EPT];
+    int my_s[EPT];
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const bool hc = t + e * NT < nc;
+      ql_raw[e] = hc ? c[e].ll / tl[e] : 0.f;
+      qu_raw[e] = hc ? c[e].lu / tu[e] : 0.f;
+      pl_raw[e] = hc ? c[e].gl / c[e].sl : 0.f;
+      pu_raw[e] = hc ? c[e].gu / c[e].su : 0.f;
+      my_s[e] = -1;
+    }
     if (ks > 0) {
-      const float dl0 = z2 + ql_raw + pl_raw, du0 = z2 + qu_raw + pu_raw;
-      float masked = hc ? ql_raw * (z2 + pl_raw) / dl0 + qu_raw * (z2 + pu_raw) / du0
-                        : -CUDART_INF_F;
-      for (int s = 0; s < ks; ++s) {
-        const int idx = block_argmax<NT>(masked, t, red);
-        if (t == idx) { my_s = s; masked = -CUDART_INF_F; }
-        if (t == 0) sidx[s] = idx;
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) {
+        const int i = t + e * NT;
+        if (i < nc) {
+          const float z2 = c[e].z2;
+          const float dl0 = z2 + ql_raw[e] + pl_raw[e], du0 = z2 + qu_raw[e] + pu_raw[e];
+          vm[i] = ql_raw[e] * (z2 + pl_raw[e]) / dl0 + qu_raw[e] * (z2 + pu_raw[e]) / du0;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) {
+        const int i = t + e * NT;
+        if (i < nc) {
+          const float v = vm[i];
+          int rank = 0;
+          for (int l = 0; l < nc; ++l) rank += argmax_better(vm[l], l, v, i) ? 1 : 0;
+          if (rank < ks) {
+            my_s[e] = rank;
+            sidx[rank] = i;
+          }
+        }
       }
     }
-    const float cap = my_s >= 0 ? CUDART_INF_F : a.ratio_cap;
-    const float ql = fminf(ql_raw, cap), qu = fminf(qu_raw, cap);
-    const float pl = fminf(pl_raw, cap), pu = fminf(pu_raw, cap);
-    const float d_l = z2 + ql + pl, d_u = z2 + qu + pu;
-    const float eta = hc ? ql * (z2 + pl) / d_l + qu * (z2 + pu) / d_u : 0.f;
-    const float rbl = hz ? nl / bl : 0.f, rbu = hz ? nu / bu : 0.f;
-    const float rb = rbl + rbu;
-    if (my_s >= 0) vds[my_s] = eta;  // exact (uncapped) stiff coefficient
-    if (hc) vc[t] = my_s >= 0 ? 0.f : eta;  // eta_mild
-    if (hz) vz[t] = rb;
+    float ql[EPT], qu[EPT], pl[EPT], pu[EPT], d_l[EPT], d_u[EPT], rbl[EPT], rbu[EPT];
+    float a_l0[EPT], a_u0[EPT], b_l0[EPT], b_u0[EPT];
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = t + e * NT;
+      const bool hz = i < nz, hc = i < nc;
+      const CState& K = c[e];
+      const float cap = my_s[e] >= 0 ? CUDART_INF_F : a.ratio_cap;
+      ql[e] = fminf(ql_raw[e], cap);
+      qu[e] = fminf(qu_raw[e], cap);
+      pl[e] = fminf(pl_raw[e], cap);
+      pu[e] = fminf(pu_raw[e], cap);
+      d_l[e] = K.z2 + ql[e] + pl[e];
+      d_u[e] = K.z2 + qu[e] + pu[e];
+      const float eta = hc ? ql[e] * (K.z2 + pl[e]) / d_l[e] + qu[e] * (K.z2 + pu[e]) / d_u[e]
+                           : 0.f;
+      rbl[e] = hz ? z[e].nl / bl[e] : 0.f;
+      rbu[e] = hz ? z[e].nu / bu[e] : 0.f;
+      if (my_s[e] >= 0) vds[my_s[e]] = eta;  // exact (uncapped) stiff coefficient
+      if (hc) vc[i] = my_s[e] >= 0 ? 0.f : eta;  // eta_mild
+      if (hz) vz[i] = rbl[e] + rbu[e];
+      // predictor rhs coefficients (targets = 0)
+      a_l0[e] = 0.f / tl[e] - K.ll;
+      a_u0[e] = 0.f / tu[e] - K.lu;
+      b_l0[e] = -r_sl[e] + a_l0[e] + 0.f / K.sl - K.gl;
+      b_u0[e] = -r_su[e] + a_u0[e] + 0.f / K.su - K.gu;
+      if (hc)
+        v2[i] = (a_l0[e] - ql[e] * b_l0[e] / d_l[e]) - (a_u0[e] - qu[e] * b_u0[e] / d_u[e]);
+    }
     __syncthreads();
 
     // ---- Newton matrix, lower triangle: H + C' diag(eta_mild) C + diag(rb) ----
     {
-      const int ty = t / 16, tx = t % 16;
-      for (int r = ty; r < nz; r += NT / 16) {
-        for (int j = tx; j <= r; j += 16) {
-          float s = 0.f;
-          for (int i = 0; i < nc; ++i) s += (sC[i * nz + r] * vc[i]) * sC[i * nz + j];
-          float v = sH[r * nz + j] + s;
-          if (r == j) {
-            v = v + vz[j];
-            v = v + 10.f * eps * (fabsf(v) + 1.f);
-          }
-          sA[r * nz + j] = v;
+      const int TZ = (nz + 3) / 4;
+      for (int tile = t; tile < TZ * (TZ + 1) / 2; tile += NT) {
+        int tr, tc;
+        ipd::tri_index(tile, tr, tc);
+        const int r0 = 4 * tr, j0 = 4 * tc;
+        int rr[4], jj[4];
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          rr[p] = min(r0 + p, nz - 1);
+          jj[p] = min(j0 + p, nz - 1);
         }
+        float acc[4][4];
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[p][q] = 0.f;
+        for (int i = 0; i < nc; ++i) {
+          const float* row = Cm + i * ld;
+          const float ei = vc[i];
+          float cr[4], cj[4];
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            cr[p] = row[rr[p]] * ei;
+            cj[p] = row[jj[p]];
+          }
+#pragma unroll
+          for (int p = 0; p < 4; ++p)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[p][q] += cr[p] * cj[q];
+        }
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int r = r0 + p, j = j0 + q;
+            if (r < nz && j <= r) {
+              float v = (j < r ? S[j * ld + r] : dH[r]) + acc[p][q];
+              if (r == j) {
+                v = v + vz[j];
+                v = v + 10.f * eps * (fabsf(v) + 1.f);
+              }
+              S[r * ld + j] = v;
+            }
+          }
       }
     }
-    if (ks > 0)
-      for (int i = t; i < ks * nz; i += NT) sCs[i] = sC[sidx[i / nz] * nz + i % nz];
-
-    // ---- predictor rhs (targets = 0) ----
-    const float a_l0 = 0.f / tl - ll, a_u0 = 0.f / tu - lu;
-    const float b_l0 = -r_sl + a_l0 + 0.f / sl - gl, b_u0 = -r_su + a_u0 + 0.f / su - gu;
-    __syncthreads();  // vc (eta_mild) reads done
-    if (hc) vc[t] = (a_l0 - ql * b_l0 / d_l) - (a_u0 - qu * b_u0 / d_u);
-    __syncthreads();
-    float rhs_aff = 0.f;
-    if (hz) {
-      float ctv = 0.f;
-      for (int i = 0; i < nc; ++i) ctv += sC[i * nz + t] * vc[i];
-      rhs_aff = -r_z + ctv + (0.f / bl - nl) - (0.f / bu - nu);
+    // the stiff rows of C as the first k_s right-hand sides, the predictor rhs last
+    for (int idx = t; idx < ks * nz; idx += NT) {
+      const int s = idx / nz, j = idx % nz;
+      X[s * ld + j] = Cm[sidx[s] * ld + j];
     }
+    float rhs_base[EPT];  // -r_z; the rest of each rhs comes from v2 and the targets
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = t + e * NT;
+      rhs_base[e] = -r_z[e];
+      if (i < nz) {
+        float ctv = 0.f;
+        for (int l = 0; l < nc; ++l) ctv += Cm[l * ld + i] * v2[l];
+        xr[i] = rhs_base[e] + ctv + (0.f / bl[e] - z[e].nl) - (0.f / bu[e] - z[e].nu);
+      }
+    }
+    __syncthreads();
 
     // ---- factor + predictor solve (+ Woodbury set) ----
-    chol_block<NT>(sA, nz);
-    float* x_aff = sX + ks * nz;
-    for (int i = t; i < ks * nz; i += NT) sX[i] = sCs[i];
-    if (hz) x_aff[t] = rhs_aff;
-    __syncthreads();
-    tri_solve_block<NT>(sA, sX, nz, ks + 1);
+    ipd::chol_blocked<NT>(S, nz, ld, wscr);
+    ipd::tri_solve_warps<NW>(S, ld, X, ld, nz, ks + 1, warp);  // xr: warp ks % NW == 0
     if (ks > 0) {
-      for (int idx = t; idx < ks * ks; idx += NT) {
-        const int r = idx / ks, c = idx % ks;
-        float s = 0.f;
-        for (int j = 0; j < nz; ++j) s += sCs[r * nz + j] * sX[c * nz + j];
-        sT[idx] = s;
-      }
       __syncthreads();
-      if (t == 0) {
-        for (int s = 0; s < ks; ++s) {
-          const float dsi = fminf(1.f / fmaxf(vds[s], 1e-30f), 1e30f);
-          const float d = sT[s * ks + s] + dsi;
-          sT[s * ks + s] = d + 10.f * eps * (fabsf(d) + 1e-30f);
+      // T = Cs Xs' (lower triangle) and u = Cs x_aff
+      for (int idx = t; idx < ks * ks + ks; idx += NT) {
+        if (idx < ks * ks) {
+          const int r = idx / ks, q = idx % ks;
+          if (q <= r) {
+            const float* cs = Cm + sidx[r] * ld;
+            const float* xs = X + q * ld;
+            float s = 0.f;
+            for (int j = 0; j < nz; ++j) s += cs[j] * xs[j];
+            T[idx] = s;
+          }
+        } else {
+          const int r = idx - ks * ks;
+          const float* cs = Cm + sidx[r] * ld;
+          float s = 0.f;
+          for (int j = 0; j < nz; ++j) s += cs[j] * xr[j];
+          u[r] = s;
         }
-        chol_serial(sT, ks);
       }
       __syncthreads();
-      wood_correct<NT>(sT, sCs, sX, x_aff, vu, nz, ks);
+      if (warp == 0) {
+        ipd::wood_factor_warp(T, vds, ks, eps);
+        ipd::wood_apply_warp(T, Cm, ld, sidx, X, ld, xr, u, nz, ks, true);
+      }
     }
-    float adz = hz ? x_aff[t] : 0.f;
-    if (!block_all<NT>(!hz || isfinite(adz), red)) adz = 0.f;
+    if (warp == 0) ipd::zero_unless_finite_warp(xr, nz);
+    __syncthreads();
 
     // ---- recover the affine direction ----
-    if (hz) vz[t] = adz;
-    __syncthreads();
-    float adw = 0.f;
-    if (hc)
-      for (int j = 0; j < nz; ++j) adw += sC[t * nz + j] * vz[j];
-    const float adsl = (b_l0 - ql * adw) / d_l;
-    const float adsu = (b_u0 + qu * adw) / d_u;
-    const float adll = a_l0 - ql * (adw + adsl);
-    const float adlu = a_u0 - qu * (adsu - adw);
-    const float adgl = (0.f - gl * sl) / sl - pl * adsl;
-    const float adgu = (0.f - gu * su) / su - pu * adsu;
-    const float adnl = (0.f - nl * bl) / bl - rbl * adz;
-    const float adnu = (0.f - nu * bu) / bu + rbu * adz;
-
-    auto step_piece = [&](float dz_, float dw_, float dsl_, float dsu_, float dll_,
+    auto step_piece = [&](int e, float dz_, float dw_, float dsl_, float dsu_, float dll_,
                           float dlu_, float dgl_, float dgu_, float dnl_, float dnu_) {
+      const int i = t + e * NT;
+      const CState& K = c[e];
       float m = CUDART_INF_F;
-      if (hc) {
-        m = fminf(m, fminf(max_step(sl, dsl_), max_step(su, dsu_)));
-        m = fminf(m, fminf(max_step(tl, dw_ + dsl_), max_step(tu, dsu_ - dw_)));
-        m = fminf(m, fminf(max_step(ll, dll_), max_step(lu, dlu_)));
-        m = fminf(m, fminf(max_step(gl, dgl_), max_step(gu, dgu_)));
+      if (i < nc) {
+        m = fminf(m, fminf(max_step(K.sl, dsl_), max_step(K.su, dsu_)));
+        m = fminf(m, fminf(max_step(tl[e], dw_ + dsl_), max_step(tu[e], dsu_ - dw_)));
+        m = fminf(m, fminf(max_step(K.ll, dll_), max_step(K.lu, dlu_)));
+        m = fminf(m, fminf(max_step(K.gl, dgl_), max_step(K.gu, dgu_)));
       }
-      if (hz) {
-        m = fminf(m, fminf(max_step(nl, dnl_), max_step(nu, dnu_)));
-        m = fminf(m, fminf(max_step(bl, dz_), max_step(bu, -dz_)));
+      if (i < nz) {
+        m = fminf(m, fminf(max_step(z[e].nl, dnl_), max_step(z[e].nu, dnu_)));
+        m = fminf(m, fminf(max_step(bl[e], dz_), max_step(bu[e], -dz_)));
       }
       return m;
     };
-    const float alpha_aff =
-        fminf(1.f, 1.f * block_min<NT>(step_piece(adz, adw, adsl, adsu, adll, adlu, adgl,
-                                                   adgu, adnl, adnu), red));
+    auto compl_part = [&](int e, float w_, float dz_, float sl_, float su_, float ll_,
+                          float lu_, float gl_, float gu_, float nl_, float nu_, float* acc2) {
+      const int i = t + e * NT;
+      const ZState& Z = z[e];
+      const CState& K = c[e];
+      if (i < nz) acc2[0] += (dz_ - Z.lb) * nl_ + (Z.ub - dz_) * nu_;
+      if (i < nc)
+        acc2[1] += (w_ + sl_ - K.lh) * ll_ + (K.uh + su_ - w_) * lu_ + sl_ * gl_ + su_ * gu_;
+    };
+    auto c_times = [&](int i, const float* x) {  // (C x)_i
+      const float* row = Cm + i * ld;
+      float s = 0.f;
+      for (int j = 0; j < nz; ++j) s += row[j] * x[j];
+      return s;
+    };
+
+    float adz[EPT], adw[EPT], adsl[EPT], adsu[EPT], adll[EPT], adlu[EPT], adgl[EPT],
+        adgu[EPT], adnl[EPT], adnu[EPT];
+    float m_aff = CUDART_INF_F;
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = t + e * NT;
+      const CState& K = c[e];
+      const ZState& Z = z[e];
+      adz[e] = i < nz ? xr[i] : 0.f;
+      adw[e] = i < nc ? c_times(i, xr) : 0.f;
+      adsl[e] = (b_l0[e] - ql[e] * adw[e]) / d_l[e];
+      adsu[e] = (b_u0[e] + qu[e] * adw[e]) / d_u[e];
+      adll[e] = a_l0[e] - ql[e] * (adw[e] + adsl[e]);
+      adlu[e] = a_u0[e] - qu[e] * (adsu[e] - adw[e]);
+      adgl[e] = (0.f - K.gl * K.sl) / K.sl - pl[e] * adsl[e];
+      adgu[e] = (0.f - K.gu * K.su) / K.su - pu[e] * adsu[e];
+      adnl[e] = (0.f - Z.nl * bl[e]) / bl[e] - rbl[e] * adz[e];
+      adnu[e] = (0.f - Z.nu * bu[e]) / bu[e] + rbu[e] * adz[e];
+      m_aff = fminf(m_aff, step_piece(e, adz[e], adw[e], adsl[e], adsu[e], adll[e], adlu[e],
+                                      adgl[e], adgu[e], adnl[e], adnu[e]));
+    }
+    const float alpha_aff = fminf(1.f, 1.f * block_min<NT>(m_aff, red, slot));
 
     // ---- Mehrotra centering ----
-    auto compl_part = [&](float w_, float dz_, float sl_, float su_, float ll_, float lu_,
-                          float gl_, float gu_, float nl_, float nu_) {
-      float zpart = hz ? (dz_ - lb) * nl_ + (ub - dz_) * nu_ : 0.f;
-      float cpart = hc ? (w_ + sl_ - lh) * ll_ + (uh + su_ - w_) * lu_ + sl_ * gl_ + su_ * gu_
-                       : 0.f;
-      return make_float2(zpart, cpart);
-    };
-    const float2 pc = block_sum2<NT>(compl_part(w, dz, sl, su, ll, lu, gl, gu, nl, nu), red);
-    const float mu_cur = (pc.x + pc.y) / n_terms;
-    const float aa = alpha_aff;
-    const float2 pa = block_sum2<NT>(
-        compl_part(w + aa * adw, dz + aa * adz, sl + aa * adsl, su + aa * adsu, ll + aa * adll,
-                   lu + aa * adlu, gl + aa * adgl, gu + aa * adgu, nl + aa * adnl,
-                   nu + aa * adnu),
-        red);
-    const float mu_aff = (pa.x + pa.y) / n_terms;
+    float pa[2] = {0.f, 0.f};
+    {
+      const float aa = alpha_aff;
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) {
+        const CState& K = c[e];
+        const ZState& Z = z[e];
+        compl_part(e, w[e] + aa * adw[e], Z.dz + aa * adz[e], K.sl + aa * adsl[e],
+                   K.su + aa * adsu[e], K.ll + aa * adll[e], K.lu + aa * adlu[e],
+                   K.gl + aa * adgl[e], K.gu + aa * adgu[e], Z.nl + aa * adnl[e],
+                   Z.nu + aa * adnu[e], pa);
+      }
+    }
+    block_sum<NT, 2>(pa, red, slot);
+    const float mu_aff = (pa[0] + pa[1]) / n_terms;
     const float ratio = fmaxf(mu_aff, 0.f) / fmaxf(mu_cur, a.d_floor);
     const float sigma = fminf(fmaxf(ratio * ratio * ratio, 1e-4f), 1.f);
     const float mu_t = fmaxf(sigma * mu_cur, a.mu_min);
 
     // ---- corrector ----
-    const float m_tl = mu_t - adll * (adw + adsl);
-    const float m_tu = mu_t - adlu * (adsu - adw);
-    const float m_sl = mu_t - adgl * adsl;
-    const float m_su = mu_t - adgu * adsu;
-    const float m_bl = mu_t - adnl * adz;
-    const float m_bu = mu_t + adnu * adz;
-    const float a_l = m_tl / tl - ll, a_u = m_tu / tu - lu;
-    const float b_l = -r_sl + a_l + m_sl / sl - gl, b_u = -r_su + a_u + m_su / su - gu;
-    if (hc) vc[t] = (a_l - ql * b_l / d_l) - (a_u - qu * b_u / d_u);
-    __syncthreads();
-    // the corrector reuses the factor and the Woodbury set (rows 0..ks-1 of
-    // sX); row ks is free again since adz was read into registers
-    float* x_c = x_aff;
-    if (hz) {
-      float ctv = 0.f;
-      for (int i = 0; i < nc; ++i) ctv += sC[i * nz + t] * vc[i];
-      x_c[t] = -r_z + ctv + (m_bl / bl - nl) - (m_bu / bu - nu);
+    float m_sl[EPT], m_su[EPT], m_bl[EPT], m_bu[EPT], a_l[EPT], a_u[EPT], b_l[EPT], b_u[EPT];
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = t + e * NT;
+      const CState& K = c[e];
+      const float m_tl = mu_t - adll[e] * (adw[e] + adsl[e]);
+      const float m_tu = mu_t - adlu[e] * (adsu[e] - adw[e]);
+      m_sl[e] = mu_t - adgl[e] * adsl[e];
+      m_su[e] = mu_t - adgu[e] * adsu[e];
+      m_bl[e] = mu_t - adnl[e] * adz[e];
+      m_bu[e] = mu_t + adnu[e] * adz[e];
+      a_l[e] = m_tl / tl[e] - K.ll;
+      a_u[e] = m_tu / tu[e] - K.lu;
+      b_l[e] = -r_sl[e] + a_l[e] + m_sl[e] / K.sl - K.gl;
+      b_u[e] = -r_su[e] + a_u[e] + m_su[e] / K.su - K.gu;
+      if (i < nc) v2[i] = (a_l[e] - ql[e] * b_l[e] / d_l[e]) - (a_u[e] - qu[e] * b_u[e] / d_u[e]);
     }
     __syncthreads();
-    tri_solve_block<NT>(sA, x_c, nz, 1);
-    if (ks > 0) wood_correct<NT>(sT, sCs, sX, x_c, vu, nz, ks);
-    float ddz = hz ? x_c[t] : 0.f;
-    if (!block_all<NT>(!hz || isfinite(ddz), red)) ddz = 0.f;
-
-    if (hz) vz[t] = ddz;
+    // the corrector reuses the factor and the Woodbury set (rows 0..ks-1 of
+    // X); row ks is free again since adz was read into registers
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = t + e * NT;
+      if (i < nz) {
+        float ctv = 0.f;
+        for (int l = 0; l < nc; ++l) ctv += Cm[l * ld + i] * v2[l];
+        xr[i] = rhs_base[e] + ctv + (m_bl[e] / bl[e] - z[e].nl) - (m_bu[e] / bu[e] - z[e].nu);
+      }
+    }
     __syncthreads();
-    float dw = 0.f;
-    if (hc)
-      for (int j = 0; j < nz; ++j) dw += sC[t * nz + j] * vz[j];
-    const float dsl = (b_l - ql * dw) / d_l;
-    const float dsu = (b_u + qu * dw) / d_u;
-    const float dll = a_l - ql * (dw + dsl);
-    const float dlu = a_u - qu * (dsu - dw);
-    const float dgl = (m_sl - gl * sl) / sl - pl * dsl;
-    const float dgu = (m_su - gu * su) / su - pu * dsu;
-    const float dnl = (m_bl - nl * bl) / bl - rbl * ddz;
-    const float dnu = (m_bu - nu * bu) / bu + rbu * ddz;
-    const float alpha = fminf(
-        1.f, a.tau * block_min<NT>(step_piece(ddz, dw, dsl, dsu, dll, dlu, dgl, dgu, dnl, dnu),
-                                   red));
+    if (warp == 0) {
+      ipd::tri_solve_warps<NW>(S, ld, xr, ld, nz, 1, 0);
+      if (ks > 0) ipd::wood_apply_warp(T, Cm, ld, sidx, X, ld, xr, u, nz, ks, false);
+      ipd::zero_unless_finite_warp(xr, nz);
+    }
+    __syncthreads();
+
+    float ddz[EPT], dw[EPT], dsl[EPT], dsu[EPT], dll[EPT], dlu[EPT], dgl[EPT], dgu[EPT],
+        dnl[EPT], dnu[EPT];
+    float m_c = CUDART_INF_F;
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = t + e * NT;
+      const CState& K = c[e];
+      const ZState& Z = z[e];
+      ddz[e] = i < nz ? xr[i] : 0.f;
+      dw[e] = i < nc ? c_times(i, xr) : 0.f;
+      dsl[e] = (b_l[e] - ql[e] * dw[e]) / d_l[e];
+      dsu[e] = (b_u[e] + qu[e] * dw[e]) / d_u[e];
+      dll[e] = a_l[e] - ql[e] * (dw[e] + dsl[e]);
+      dlu[e] = a_u[e] - qu[e] * (dsu[e] - dw[e]);
+      dgl[e] = (m_sl[e] - K.gl * K.sl) / K.sl - pl[e] * dsl[e];
+      dgu[e] = (m_su[e] - K.gu * K.su) / K.su - pu[e] * dsu[e];
+      dnl[e] = (m_bl[e] - Z.nl * bl[e]) / bl[e] - rbl[e] * ddz[e];
+      dnu[e] = (m_bu[e] - Z.nu * bu[e]) / bu[e] + rbu[e] * ddz[e];
+      m_c = fminf(m_c, step_piece(e, ddz[e], dw[e], dsl[e], dsu[e], dll[e], dlu[e], dgl[e],
+                                  dgu[e], dnl[e], dnu[e]));
+    }
+    const float alpha = fminf(1.f, a.tau * block_min<NT>(m_c, red, slot));
 
     // ---- update with floors ----
-    dz = dz + alpha * ddz;
-    sl = fmaxf(sl + alpha * dsl, a.p_floor);
-    su = fmaxf(su + alpha * dsu, a.p_floor);
-    ll = fmaxf(ll + alpha * dll, a.d_floor);
-    lu = fmaxf(lu + alpha * dlu, a.d_floor);
-    gl = fmaxf(gl + alpha * dgl, a.d_floor);
-    gu = fmaxf(gu + alpha * dgu, a.d_floor);
-    nl = fmaxf(nl + alpha * dnl, a.d_floor);
-    nu = fmaxf(nu + alpha * dnu, a.d_floor);
-    const float2 pn =
-        block_sum2<NT>(compl_part(w + alpha * dw, dz, sl, su, ll, lu, gl, gu, nl, nu), red);
-    mu = fmaxf((pn.x + pn.y) / n_terms, a.mu_min);
-    if (a.n_tail > 0 && it >= a.n_iters - a.n_tail) dzs = dzs + dz;
-    __syncthreads();
+    const bool last = it == a.n_iters - 1;
+    float pn[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      ZState& Z = z[e];
+      CState& K = c[e];
+      Z.dz = Z.dz + alpha * ddz[e];
+      K.sl = fmaxf(K.sl + alpha * dsl[e], a.p_floor);
+      K.su = fmaxf(K.su + alpha * dsu[e], a.p_floor);
+      K.ll = fmaxf(K.ll + alpha * dll[e], a.d_floor);
+      K.lu = fmaxf(K.lu + alpha * dlu[e], a.d_floor);
+      K.gl = fmaxf(K.gl + alpha * dgl[e], a.d_floor);
+      K.gu = fmaxf(K.gu + alpha * dgu[e], a.d_floor);
+      Z.nl = fmaxf(Z.nl + alpha * dnl[e], a.d_floor);
+      Z.nu = fmaxf(Z.nu + alpha * dnu[e], a.d_floor);
+      if (last)
+        compl_part(e, w[e] + alpha * dw[e], Z.dz, K.sl, K.su, K.ll, K.lu, K.gl, K.gu, Z.nl,
+                   Z.nu, pn);
+      if (a.n_tail > 0 && it >= a.n_iters - a.n_tail) Z.dzs = Z.dzs + Z.dz;
+    }
+    // mu is read only after the phase: the next iteration recomputes its own
+    if (last) {
+      block_sum<NT, 2>(pn, red, slot);
+      mu = fmaxf((pn[0] + pn[1]) / n_terms, a.mu_min);
+    }
   }
 
-  if (hz) {
-    a.o_dz[zoff + t] = dz; a.o_nl[zoff + t] = nl; a.o_nu[zoff + t] = nu;
-    a.o_bdz[zoff + t] = bdz; a.o_dzs[zoff + t] = dzs;
-  }
-  if (hc) {
-    a.o_sl[coff + t] = sl; a.o_su[coff + t] = su; a.o_ll[coff + t] = ll;
-    a.o_lu[coff + t] = lu; a.o_gl[coff + t] = gl; a.o_gu[coff + t] = gu;
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int i = t + e * NT;
+    const size_t zo = size_t(b) * nz + i, co = size_t(b) * nc + i;
+    if (i < nz) {
+      a.o_dz[zo] = z[e].dz; a.o_nl[zo] = z[e].nl; a.o_nu[zo] = z[e].nu;
+      a.o_bdz[zo] = z[e].bdz; a.o_dzs[zo] = z[e].dzs;
+    }
+    if (i < nc) {
+      a.o_sl[co] = c[e].sl; a.o_su[co] = c[e].su; a.o_ll[co] = c[e].ll;
+      a.o_lu[co] = c[e].lu; a.o_gl[co] = c[e].gl; a.o_gu[co] = c[e].gu;
+    }
   }
   if (t == 0) { a.o_mu[b] = mu; a.o_bm[b] = best_m; }
 }
 
+size_t smem_bytes(int nz, int nc, int ks) {
+  const int ld = nz | 1;
+  return sizeof(float) * (size_t(nz) * ld + nz + size_t(nc) * ld + size_t(ks + 1) * ld +
+                          ks * ks + nz + 3 * nc + 2 * ks + RED_WORDS + WSCR_WORDS) +
+         sizeof(int) * ks;
+}
+
+// The attribute is a ceiling (occupancy follows the bytes of each launch), so
+// it is set to SMEM_LIMIT once per instance and device.
+template <int EPT, int MINB>
+cudaError_t configure(size_t smem) {
+  static bool set[64] = {};
+  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && set[dev])) return err;
+  err = cudaFuncSetAttribute(ip_phase_kernel<EPT, MINB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_LIMIT));
+  if (err == cudaSuccess && dev < 64) set[dev] = true;
+  return err;
+}
+
+struct Instance {
+  void (*fn)(PhaseArgs);
+  cudaError_t (*configure)(size_t);
+};
+
+// nz and nc up to NT take one element per thread and up to 4 blocks per SM;
+// up to 2 * NT, two elements per thread and the register file of one block.
+Instance pick_kernel(int nz, int nc) {
+  if (nz <= NT && nc <= NT) return {ip_phase_kernel<1, 4>, configure<1, 4>};
+  return {ip_phase_kernel<2, 1>, configure<2, 1>};
+}
+
 }  // namespace
 
-SDF_NMPC_EXPORT size_t ip_phase_smem_bytes(int nz, int nc, int ks) {
-  return sizeof(float) * (2 * nz * nz + nc * nz + (ks + 1) * nz + ks * nz + ks * ks + nz +
-                          nc + 2 * ks + 2 * (NT / 32)) +
-         sizeof(int) * ks;
+// Launch geometry at (nz, nc, ks): threads per block, dynamic shared bytes per
+// block and resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+SDF_NMPC_EXPORT int ip_phase_geometry(int nz, int nc, int ks, int* threads, int* smem,
+                                      int* blocks_per_sm) {
+  const Instance k = pick_kernel(nz, nc);
+  const size_t bytes = smem_bytes(nz, nc, ks);
+  cudaError_t err = k.configure(bytes);
+  if (err != cudaSuccess) return int(err);
+  *threads = NT;
+  *smem = int(bytes);
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, k.fn, NT, bytes));
 }
 
 SDF_NMPC_EXPORT int ip_phase_launch(
@@ -367,7 +627,8 @@ SDF_NMPC_EXPORT int ip_phase_launch(
     const float* const* state_in, float* const* state_out, int B, int nz, int nc, int ks,
     int n_iters, int it0, int n_tail, float ratio_cap, float mu_min, float p_floor,
     float d_floor, float tau, cudaStream_t stream) {
-  if (nz > NT || nc > NT || ks > nc || B <= 0) return int(cudaErrorInvalidValue);
+  if (nz > 2 * NT || nc > 2 * NT || ks > nc || ks < 0 || B <= 0)
+    return int(cudaErrorInvalidValue);
   PhaseArgs a;
   a.H = H; a.C = C; a.g = g; a.c0 = c0; a.lh = lh; a.uh = uh; a.z1 = z1; a.z2 = z2;
   a.lb = lb; a.ub = ub;
@@ -382,10 +643,12 @@ SDF_NMPC_EXPORT int ip_phase_launch(
   a.nz = nz; a.nc = nc; a.ks = ks; a.n_iters = n_iters; a.it0 = it0; a.n_tail = n_tail;
   a.ratio_cap = ratio_cap; a.mu_min = mu_min; a.p_floor = p_floor; a.d_floor = d_floor;
   a.tau = tau;
-  const size_t smem = ip_phase_smem_bytes(nz, nc, ks);
-  cudaError_t err = cudaFuncSetAttribute(
-      ip_phase_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  const Instance k = pick_kernel(nz, nc);
+  const size_t smem = smem_bytes(nz, nc, ks);
+  const cudaError_t err = k.configure(smem);
   if (err != cudaSuccess) return int(err);
-  ip_phase_kernel<<<B, NT, smem, stream>>>(a);
-  return int(cudaGetLastError());
+  void* args[] = {&a};
+  const cudaError_t launched = cudaLaunchKernel(reinterpret_cast<const void*>(k.fn), dim3(B),
+                                                dim3(NT), args, smem, stream);
+  return int(launched != cudaSuccess ? launched : cudaGetLastError());
 }

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "sdf_fused_launch": [_P] * 15 + [_I] * 5 + [_F, _P],
     "condense_launch": [_P] * 18 + [_I] * 6 + [_P],
     "ip_phase_launch": [_P] * 12 + [_I] * 7 + [_F] * 5 + [_P],
+    "ip_phase_geometry": [_I] * 3 + [_P] * 3,
     "factor_solve_launch": [_P] * 4 + [_I] * 3 + [_P],
     "solve_launch": [_P] * 3 + [_I] * 3 + [_P],
     "stiff_factor_solve_launch": [_P] * 8 + [_I] * 4 + [_P],

@@ -14,7 +14,8 @@ uh, z1, z2 (B, nc); lh/uh already clamped to +-1e8.  State: the 13-tuple
 best_m (B,), dz_tail_sum).
 
 On CUDA tensors ``ip_phase`` launches ``csrc/ip_phase.cu`` (f32 only, k_s a
-multiple of 8 with k_s <= nc, else it raises).  On CPU tensors it runs the
+multiple of 8 with k_s <= nc, nz and nc at most 256, else it raises; its
+blocked factorization and warp-level solves are in ``csrc/ip_dense.cuh``).  On CPU tensors it runs the
 plain version: solver/qp.py's iteration body line by line
 (``ip_iteration``) with ``torch.linalg.cholesky`` / ``cholesky_solve``, in
 f32 or f64.
@@ -343,6 +344,15 @@ def _ip_phase_cuda(data, state, k_s, n_iters, it0, consts, n_tail=0):
     _lib.check(err, "ip_phase")
     _lib.launch_counts["ip_phase"] += 1
     return out
+
+
+def ip_phase_geometry(nz, nc, k_s) -> dict:
+    """Kernel 4's launch at (nz, nc, k_s) on the current card: threads per
+    block, dynamic shared bytes per block, resident blocks per SM."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    err = _lib.library().ip_phase_geometry(nz, nc, k_s, *[ctypes.byref(v) for v in vals])
+    _lib.check(err, "ip_phase_geometry")
+    return dict(zip(("threads", "smem_bytes", "blocks_per_sm"), (v.value for v in vals)))
 
 
 def ip_phase(data, state, k_s, n_iters, it0, consts, n_tail=0):
