@@ -19,35 +19,44 @@ failure raises and exits non-zero before the result line:
    the build time and ptxas' register/spill report;
 3. kernel checks, fused path: kernels 1-4 against their plain PyTorch
    versions on the inputs one cold step gives them for B=1024 scenarios
-   (the accuracy scenarios tiled and jittered from a seed), and the
-   interior point also on a seeded random QP batch, per launch and as the
-   whole fused solve;
+   (the accuracy scenarios tiled and jittered from a seed), kernel 2 by
+   both routes (sdf_fused_dtype f32: sdf_fused.cu against the exact plain
+   version; f32x3, the default: sdf_fused_x3.cu on the tensor cores against
+   the 3xTF32 plain version), and the interior point also on a seeded
+   random QP batch, per launch and as the whole fused solve;
 4. kernel checks, composed path: kernels 5-8 against their plain versions
    on every launch of one dual-warm-started cold step at B=1024, and of a
    step with ``qp_stiff_k: 6`` and ``ir_steps: 1`` (kernel 5 with 7 rows,
    refinement re-solves); then the whole composed solve with the kernels
    against the same solve with the plain versions;
 5. accuracy: the 32 cold scenarios and the warm / steady replays against
-   the goldens, with the default settings and with dual_warm_start;
+   the goldens, with the default settings, with sdf_fused_dtype f32 (so
+   both kernel-2 routes' u0 errors stand in one run) and with
+   dual_warm_start;
 6. fused main path: B=8192, one cold step then 20 chained steady steps
    ended by one synchronize, launch counts set to 0 just before and read
    just after; solves/s, ms per step, the time at which the host had
    issued the 20 steps (the last step call returned, before the
-   synchronize), peak memory, the per-step spread;
+   synchronize), peak memory, the per-step spread; then the same with
+   sdf_fused_dtype f32 (kernel 2's IEEE route), and its busy share;
 7. where the time goes on it (torch.profiler busy share) and per-kernel
-   numbers for kernels 1-4 on the inputs a steady step gives them; for
-   kernel 4 also each launch's time (warm phase, stiff phase), its launch
-   geometry (threads, shared bytes, resident blocks per SM);
+   numbers for kernels 1-4 on the inputs a steady step gives them, kernel 2
+   by both routes (the f32x3 route's bound at the TF32 tensor-core peak,
+   three passes, and its launch geometry); for kernel 4 also each launch's
+   time (warm phase, stiff phase), its launch geometry (threads, shared
+   bytes, resident blocks per SM);
 8. composed main path: the same at B=8192 with dual_warm_start (one cold
    step then 20 chained steady steps), its busy share, and per-kernel
-   numbers for kernels 5-8, the library calls beside kernels 5 and 6;
+   numbers for kernels 5-8, the library calls beside kernels 5 and 6,
+   kernel 5's launch geometry;
 9. the ``Nmpc`` controller at B=1: about 30 ticks on waypoints, each fed
    the predicted next state: the cold -> warm -> steady promotion, no
    failure, clipped finite commands, per-tick latency;
 10. ``make_batched_step`` once at B=8192: BatchStats against a reduction of
    the results;
 11. kernel checks, per family: kernel 9 (rates, wrench, props) or kernel 1
-   (acc, att_tau), kernel 2 and kernel 3 against their plain versions on
+   (acc, att_tau), kernel 2 (both routes) and kernel 3 against their plain
+   versions on
    the inputs one cold step gives them at B=1024, the family's scenarios
    tiled and jittered as in phase 3, each reading beside the plain f32
    version's distance to f64;
@@ -61,22 +70,26 @@ failure raises and exits non-zero before the result line:
    promotion, no failure, clipped finite ``get_cmd_props``, kernel 9
    launched and kernel 1 not.
 
-The last lines are the ``kernels`` JSON (all nine kernels, each with its
-per-launch times ``launch_ms``; the rows of kernels 1 and 9 carry each
-model's numbers under ``per_model``, and at top level att's and props';
-kernel 4's row ``launch_k_s`` and ``geometry``), the card's
-name and power limit, and
+The last lines are the ``kernels`` JSON (all nine kernels, kernel 2 as one
+row per route, each with its per-launch times ``launch_ms``; the rows of
+kernels 1 and 9 carry each model's numbers under ``per_model``, and at top
+level att's and props'; kernel 4's row ``launch_k_s`` and ``geometry``,
+kernel 2's f32x3 row and kernel 5's row their ``geometry``; the f32 row's
+``launches`` come from the f32 run of phase 6), the card's name and power
+limit, and
 ``{"ok": true, "device": {...}}``.
 
 Two options run a part alone, to compare source trees on one card (they
 print no result line):
 
     python3 chip_smoke.py --ip-builds DIR [DIR ...]
-        kernel 4 built from each DIR's ip_phase.cu (and the headers beside
-        it) against the package's build, on the launches of one steady step
-        of the fused main path: each launch's time, the builds interleaved
-        round by round, and each build's outputs against the package's, bit
-        for bit;
+    python3 chip_smoke.py --sdf-builds DIR [DIR ...]
+        kernel 4 (or kernel 2's f32x3 route) built from each DIR's
+        ip_phase.cu (sdf_fused_x3.cu) and the headers beside it against the
+        package's build, on the launches of one steady step of the fused main
+        path: each launch's time, the builds interleaved round by round, each
+        build's outputs against the package's, bit for bit, and (kernel 2)
+        against the f64 plain version;
     python3 chip_smoke.py --composed
         phases 1, 2, 8 (without the kernel numbers) and 9: the composed main
         path and the ``Nmpc`` controller; copied into another tree, the same
@@ -100,7 +113,8 @@ CHECK_B = 1024  # scenarios of the kernel checks (phase 3)
 MAIN_B = 8192  # scenarios of the main path (phase 5), as bench.py
 N_STEADY = 20  # chained steady steps of the main path
 PROFILE_STEPS = 3  # profiled steady steps (phase 6)
-PER_STEP = {"lin_y_sens": 1, "erk4_sens": 0, "sdf_fused": 1, "condense": 1, "ip_phase": 2}
+PER_STEP = {"lin_y_sens": 1, "erk4_sens": 0, "sdf_fused": 0, "sdf_fused_x3": 1, "condense": 1,
+            "ip_phase": 2}
 ERK4_FAMILIES = ("rates", "wrench", "props")  # kernel 9
 LIN_FAMILIES = ("acc", "att_tau")  # kernel 1, as att
 NMPC_TICKS_PROPS = 15
@@ -109,11 +123,14 @@ NMPC_TICKS_PROPS = 15
 # of the cold (20 / 8 stiff) and steady (15 / 4 stiff) budgets
 COMPOSED_ITERS = {"cold": (12, 8), "steady": (11, 4)}
 DWS = {"dual_warm_start": True}
+SDF_F32 = {"sdf_fused_dtype": "f32"}  # kernel 2's IEEE route (the default is f32x3)
 UNALIGNED = {"dual_warm_start": True, "qp_stiff_k": 6, "ir_steps": 1}
 FUSED_KERNELS = {  # name -> (source in the repo, the TPU kernel it replaces)
     "lin_y_sens": ("sdf_nmpc_tpu_torch/csrc/lin_y_sens.cu",
                    "sdf_nmpc_tpu/ops/lin_kernels.py:173"),
     "sdf_fused": ("sdf_nmpc_tpu_torch/csrc/sdf_fused.cu", "sdf_nmpc_tpu/ops/sdf_fused.py:154"),
+    "sdf_fused_x3": ("sdf_nmpc_tpu_torch/csrc/sdf_fused_x3.cu",
+                     "sdf_nmpc_tpu/ops/sdf_fused.py:154"),
     "condense": ("sdf_nmpc_tpu_torch/csrc/condense.cu",
                  "sdf_nmpc_tpu/ops/condense_kernel.py:38"),
     "ip_phase": ("sdf_nmpc_tpu_torch/csrc/ip_phase.cu", "sdf_nmpc_tpu/ops/ip_kernel.py:78"),
@@ -132,7 +149,9 @@ KERNELS = {**FUSED_KERNELS, **COMPOSED_KERNELS,
 #  lin: A, B at 1e-4 and the y sweep at 2e-4 (tests/test_ops.py); the kernel
 #       runs the algebraic cos/sin-of-atan2 form, the plain version atan2.
 #  sdf: value 2e-4, gradient 2e-3 (tests/test_ops.py); sin(20 z) amplifies
-#       the sum-order rounding of each layer.
+#       the sum-order rounding of each layer.  Both routes, each against its
+#       own plain version: f32 (sdf_fused) against the exact one, f32x3
+#       (sdf_fused_x3, 3xTF32) against sdf_value_grad_x3_plain.
 #  condense: 1e-5 (tests/test_qp_kernels.py), plus 1e-5 relative, since E and
 #       G reach magnitudes near 10 where one f32 rounding is ~1e-6.
 #  ip: every launch on the dz, best_dz, best merit and tail sum it leaves,
@@ -200,6 +219,9 @@ QP_RULE = (1e-4, 0.02, 2.0, 4.0, 1e-7)  # (threshold, share, median x, max x, fl
 # FP32 (non-tensor-core) peak and memory rate per part, at its full power
 # limit (NVIDIA data sheets); the SXM part is the default.
 PEAKS = {"PCIe": (51e12, 2.0e12), "NVL": (60e12, 3.9e12), "SXM": (67e12, 3.35e12)}
+# dense TF32 tensor-core peak per part (the data sheets' figures with
+# sparsity, halved): the bound of kernel 2's f32x3 route
+TF32_PEAKS = {"PCIe": 378e12, "NVL": 417.5e12, "SXM": 495e12}
 # the torch ops whose output elements count as arithmetic operations in
 # ops_per_point (a sum: its input elements less its output elements)
 ARITH_OPS = {"add", "sub", "rsub", "mul", "div", "neg", "pow", "rsqrt", "sqrt", "sin", "cos",
@@ -230,7 +252,7 @@ class Capture:
 
         self.targets = {"lin_y_sens": (lin_kernels, "lin_y_sens"),
                         "erk4_sens": (lin_kernels, "erk4_sens"),
-                        "sdf_fused": (sdf_fused, "sdf_value_grad"),
+                        "sdf": (sdf_fused, "sdf_value_grad"),
                         "condense": (condense_kernel, "condense"),
                         "ip_phase": (ip_kernel, "ip_phase"),
                         "solve_qp": (sqp, "solve_qp"),
@@ -328,6 +350,7 @@ def card_peaks(name: str):
         if key in name:
             return key, v
     return "SXM", PEAKS["SXM"]
+
 
 
 def bound(ops: float, bytes_: float, peaks) -> tuple[float, str]:
@@ -436,17 +459,33 @@ def check_erk4(args) -> float:
     return max(e for e, _ in errs)
 
 
-def check_sdf(args) -> float:
+SDF_ROUTES = {"sdf_fused": "f32", "sdf_fused_x3": "f32x3"}  # launch count -> mode
+
+
+def sdf_plain(name):
     from sdf_nmpc_tpu_torch.ops import sdf_fused
 
-    got = sdf_fused.sdf_value_grad(*args)
-    want = sdf_fused.sdf_value_grad_plain(*args)
+    return (sdf_fused.sdf_value_grad_x3_plain if name == "sdf_fused_x3"
+            else sdf_fused.sdf_value_grad_plain)
+
+
+def check_sdf(args, name) -> float:
+    """Kernel 2's route ``name`` against its own plain version on args."""
+    from sdf_nmpc_tpu_torch.ops import sdf_fused
+
+    got = sdf_fused.sdf_value_grad(*args, mode=SDF_ROUTES[name])
+    want = sdf_plain(name)(*args)
     errs = [max_abs(g, w) for g, w in zip(got, want)]
-    log(f"  sdf_fused   value err {errs[0]:.2e} (tol {SDF_TOL[0]}), "
+    log(f"  {name:12s} value err {errs[0]:.2e} (tol {SDF_TOL[0]}), "
         f"grad err {errs[1]:.2e} (tol {SDF_TOL[1]})")
     if not (errs[0] <= SDF_TOL[0] and errs[1] <= SDF_TOL[1]):
-        raise AssertionError("sdf_value_grad disagrees with its plain version")
+        raise AssertionError(f"sdf_value_grad ({name}) disagrees with its plain version")
     return max(errs)
+
+
+def check_sdf_routes(cap) -> dict:
+    """Both routes of kernel 2 on every captured sdf_value_grad input."""
+    return {name: max(check_sdf(a, name) for a in cap.args("sdf")) for name in SDF_ROUTES}
 
 
 def check_condense(args) -> float:
@@ -512,7 +551,7 @@ def check_fused_solve(call, label: str) -> float:
 def check_all(cap: Capture, label: str) -> dict:
     errs = {
         "lin_y_sens": max(check_lin(a) for a in cap.args("lin_y_sens")),
-        "sdf_fused": max(check_sdf(a) for a in cap.args("sdf_fused")),
+        **check_sdf_routes(cap),
         "condense": max(check_condense(a) for a in cap.args("condense")),
     }
     errs["ip_phase"] = max([check_ip(a, f"{label} launch {i}")
@@ -969,18 +1008,19 @@ def phase_composed_checks(dev):
 
 
 def phase_accuracy(dev):
-    """The goldens with the default settings (fused path) and with
-    dual_warm_start (composed path)."""
+    """The goldens with the default settings (fused path, kernel 2 in
+    3xTF32), with kernel 2's IEEE f32 route, and with dual_warm_start
+    (composed path)."""
     from sdf_nmpc_tpu_torch.utils import accuracy as acc
 
     report = {}
-    for over, label in ((None, "default"), (DWS, "dual warm start")):
+    for over, label in ((None, "default"), (SDF_F32, "sdf f32"), (DWS, "dual warm start")):
         cold = acc.check_accuracy(device=dev, solver_over=over)
         warm = acc.check_warm_accuracy(device=dev, budget="warm", solver_over=over)
         steady = acc.check_warm_accuracy(device=dev, budget="steady", solver_over=over)
         # with dual_warm_start, the one warm tick the JAX package's f32 step
         # leaves beyond the CI gate is held on its own (see accuracy.py)
-        short, limit = acc.short_tick("att", dual_warm_start=bool(over))
+        short, limit = acc.short_tick("att", dual_warm_start=over is DWS)
         g = acc.replay_gates(warm, steady, exempt=short)
         rows = (("cold", cold["u0_mean_err"], cold["u0_max_err"], cold["n_ok"], cold["n_scen"]),
                 ("warm" if short is None else f"warm but scenario/tick {short}", g["warm_mean"],
@@ -1083,6 +1123,11 @@ def fused_per_step(steps):
     return {name: per * steps for name, per in PER_STEP.items()}
 
 
+def f32_per_step(steps):
+    """The fused path with sdf_fused_dtype f32: kernel 2's IEEE route."""
+    return {**fused_per_step(steps), "sdf_fused": steps, "sdf_fused_x3": 0}
+
+
 def family_per_step(model):
     """The fused path's launches, kernel 9 in place of kernel 1 for the
     families without a component-form residual; no composed-path launch."""
@@ -1098,31 +1143,43 @@ def composed_per_step(steps):
     """Kernels 1-3 once a step; kernels 5-8 as COMPOSED_ITERS, no kernel 4."""
     (cw, cs), (sw, ss) = COMPOSED_ITERS["cold"], COMPOSED_ITERS["steady"]
     n = steps - 1  # steady steps after the cold one
-    return {"lin_y_sens": steps, "erk4_sens": 0, "sdf_fused": steps, "condense": steps,
-            "ip_phase": 0,
+    return {"lin_y_sens": steps, "erk4_sens": 0, "sdf_fused": 0, "sdf_fused_x3": steps,
+            "condense": steps, "ip_phase": 0,
             "factor_solve": cw + n * sw, "solve": cw + n * sw,
             "stiff_factor_solve": cs + n * ss, "stiff_resolve": cs + n * ss}
 
 
 def phase_kernel_numbers(counts, t_step, steady, state, inputs, card):
+    """Kernels 1-4 on the inputs one steady step of the fused path gives
+    them at B=MAIN_B, kernel 2 by both routes on its inputs (``counts``: the
+    launches of the main-path runs, sdf_fused's from the f32 run)."""
     from sdf_nmpc_tpu_torch.ops import condense_kernel, ip_kernel, lin_kernels, sdf_fused
 
     with Capture() as cap:
         steady(state, inputs)
-    calls = {name: cap.args(name) for name in FUSED_KERNELS}
+    calls = {name: cap.args(name) for name in FUSED_KERNELS if name not in SDF_ROUTES}
+    calls.update({name: cap.args("sdf") for name in SDF_ROUTES})
     log(f"kernel numbers, fused path: inputs of one steady step at B={MAIN_B}")
     errs = check_all(cap, "main path")
     part, peaks = card_peaks(card.split(",")[0])
+    sdf_route = lambda name: lambda *a: sdf_fused.sdf_value_grad(*a, mode=SDF_ROUTES[name])
     runs = {  # name -> (kernel, plain version, cost, library call): no library call
         "lin_y_sens": (lin_kernels.lin_y_sens,
                        lambda a: lin_kernels.lin_y_sens_plain(a[0], *a[2:]), lin_cost, None),
-        "sdf_fused": (sdf_fused.sdf_value_grad, lambda a: sdf_fused.sdf_value_grad_plain(*a),
-                      sdf_cost, None),
+        **{name: (sdf_route(name), lambda a, _p=sdf_plain(name): _p(*a), sdf_cost, None)
+           for name in SDF_ROUTES},
         "condense": (condense_kernel.condense, lambda a: condense_kernel.condense_plain(*a),
                      condense_cost, None),
         "ip_phase": (ip_kernel.ip_phase, lambda a: ip_kernel.ip_phase_plain(*a), ip_cost, None),
     }
-    rows = kernel_rows(runs, calls, counts, errs, peaks, part)
+    # the f32x3 route does three TF32 passes on the tensor cores
+    rates = {"sdf_fused_x3": (3.0, TF32_PEAKS[part])}
+    rows = kernel_rows(runs, calls, counts, errs, peaks, part, rates)
+    x3_row = next(r for r in rows if r["name"] == "sdf_fused_x3")
+    x3_row["geometry"] = sdf_fused.sdf_fused_x3_geometry()
+    log(f"  sdf_fused_x3: {x3_row['geometry']['threads']} threads and "
+        f"{x3_row['geometry']['smem_bytes']} B of shared memory per block, "
+        f"{x3_row['geometry']['blocks_per_sm']} blocks per SM")
     ip_row = next(r for r in rows if r["name"] == "ip_phase")
     # kernel 4: per launch (the warm phase, then the stiff one) k_s and the
     # launch geometry beside launch_ms
@@ -1136,16 +1193,18 @@ def phase_kernel_numbers(counts, t_step, steady, state, inputs, card):
             f"{geo['blocks_per_sm']} blocks per SM")
     log(f"  ip_phase {ip_row['ms']:.4f} ms/step (its first design took 97.26 ms on an H100 "
         f"80GB HBM3 at 700 W, PERF.md section 6); card {card}")
-    k_sum = sum(r["ms"] for r in rows)
-    log(f"kernels 1-4: {k_sum:.3f} ms of the {t_step * 1e3:.3f} ms chained steady step "
-        f"({k_sum / (t_step * 1e3):.1%}); card {card}")
+    k_sum = sum(r["ms"] for r in rows if r["name"] != "sdf_fused")
+    log(f"kernels 1-4 (kernel 2 by its default route): {k_sum:.3f} ms of the "
+        f"{t_step * 1e3:.3f} ms chained steady step ({k_sum / (t_step * 1e3):.1%}); card {card}")
     return rows
 
 
-def kernel_rows(runs, calls, counts, errs, peaks, part):
+def kernel_rows(runs, calls, counts, errs, peaks, part, rates=None):
     """One ``kernels`` row per kernel: its time over the launches of one
     steady step (CUDA events), the plain version's and the library call's
-    on the same inputs, and the bound of that work."""
+    on the same inputs, and the bound of that work.  ``rates``: name ->
+    (passes, peak operations/s) for a kernel whose operations run at another
+    peak than FP32's, ``passes`` times over."""
     rows = []
     for name, (kern, plain, cost, library) in runs.items():
         ms = plain_ms = lib_ms = 0.0
@@ -1160,7 +1219,9 @@ def kernel_rows(runs, calls, counts, errs, peaks, part):
             ops, by = cost(a)
             ops_total += ops
             bytes_total += by
-        bound_ms, bound_by = bound(ops_total, bytes_total, peaks)
+        passes, rate = (rates or {}).get(name, (1.0, peaks[0]))
+        ops_total *= passes
+        bound_ms, bound_by = bound(ops_total, bytes_total, (rate, peaks[1]))
         src, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": counts[name], "max_abs_err": errs[name], "ms": ms,
@@ -1190,6 +1251,12 @@ def phase_composed_numbers(counts, t_step, steady, state, inputs, card):
                    lambda a, _n=name: qp_cost(_n, a), library_call(name))
             for name in COMPOSED_KERNELS}
     rows = kernel_rows(runs, calls, counts, errs, peaks, part)
+    fs_row = next(r for r in rows if r["name"] == "factor_solve")
+    M, RHS = calls["factor_solve"][0]
+    fs_row["geometry"] = qp_kernels.factor_solve_geometry(M.shape[-1], RHS.shape[1])
+    log(f"  factor_solve (n={M.shape[-1]}, r={RHS.shape[1]}): "
+        f"{fs_row['geometry']['threads']} threads and {fs_row['geometry']['smem_bytes']} B of "
+        f"shared memory per block, {fs_row['geometry']['blocks_per_sm']} blocks per SM")
     k_sum = sum(r["ms"] for r in rows)
     log(f"kernels 5-8: {k_sum:.3f} ms of the {t_step * 1e3:.3f} ms chained steady step "
         f"({k_sum / (t_step * 1e3):.1%}); card {card}")
@@ -1278,8 +1345,8 @@ def phase_nmpc(dev, card, ticks=31, model=None, over=DWS):
                   else ("lin_y_sens", "erk4_sens"))
     qp = list(COMPOSED_KERNELS) if dws else ["ip_phase"]
     unused = ["ip_phase"] if dws else list(COMPOSED_KERNELS)
-    missing = [k for k in (lin, "sdf_fused", "condense", *qp) if not counts[k]]
-    extra = [k for k in (other, *unused) if counts[k]]
+    missing = [k for k in (lin, "sdf_fused_x3", "condense", *qp) if not counts[k]]
+    extra = [k for k in (other, "sdf_fused", *unused) if counts[k]]
     if missing or extra:
         raise AssertionError(f"{label}: kernels not launched {missing}, or launched {extra}")
 
@@ -1334,8 +1401,7 @@ def phase_family_checks(dev, model):
                              f"{len(cap.args(other))} times; expected 1 and 0")
     for a in cap.args(lin):
         (check_erk4 if lin == "erk4_sens" else check_lin)(a)
-    for a in cap.args("sdf_fused"):
-        check_sdf(a)
+    check_sdf_routes(cap)
     for a in cap.args("condense"):
         check_condense(a)
     torch.cuda.synchronize()
@@ -1447,14 +1513,20 @@ def phase_families(dev, card):
     return per_kernel
 
 
-def build_ip_variant(src_dir: str, out_dir) -> str:
-    """nvcc (the package's flags) of src_dir/ip_phase.cu into a library."""
+# kernel -> (its source, its C functions) for the --ip-builds / --sdf-builds
+# comparisons
+VARIANTS = {"ip_phase": ("ip_phase.cu", ("ip_phase_launch", "ip_phase_geometry")),
+            "sdf_fused_x3": ("sdf_fused_x3.cu", ("sdf_fused_x3_launch", "sdf_fused_x3_geometry"))}
+
+
+def build_variant(src_dir: str, source: str, out_dir) -> str:
+    """nvcc (the package's flags) of src_dir/source into a library."""
     from sdf_nmpc_tpu_torch.ops import _lib
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    obj, lib = out_dir / "ip_phase.o", out_dir / "libip_phase.so"
+    obj, lib = out_dir / "variant.o", out_dir / "libvariant.so"
     nvcc = _lib._nvcc()
-    for cmd in ([nvcc, *_lib.ARCH, *_lib.NVCC_FLAGS, "-c", os.path.join(src_dir, "ip_phase.cu"),
+    for cmd in ([nvcc, *_lib.ARCH, *_lib.NVCC_FLAGS, "-c", os.path.join(src_dir, source),
                  "-o", str(obj)],
                 [nvcc, *_lib.ARCH, "-shared", "-o", str(lib), str(obj)]):
         run = subprocess.run(cmd, capture_output=True, text=True)
@@ -1466,59 +1538,88 @@ def build_ip_variant(src_dir: str, out_dir) -> str:
     return str(lib)
 
 
-def phase_ip_builds(dev, card, dirs, rounds=3):
-    """Kernel 4 from other source trees against the package's build, on the
-    launches of one steady step of the fused main path (B=MAIN_B)."""
+def phase_builds(dev, card, kernel, dirs, rounds=3):
+    """``kernel`` (kernel 4 or kernel 2's f32x3 route) built from other
+    source trees against the package's build, on its launches of one steady
+    step of the fused main path (B=MAIN_B): each launch's time, the builds
+    interleaved round by round, whether each build's outputs equal the
+    package's bit for bit, and for kernel 2 how far its value and gradient
+    lie from the f64 plain version.  A tree must keep the package's C
+    interface and host-side layout."""
     import ctypes
 
-    from sdf_nmpc_tpu_torch.ops import _lib, ip_kernel
+    from sdf_nmpc_tpu_torch.ops import _lib, ip_kernel, sdf_fused
     from sdf_nmpc_tpu_torch.solver import init_state, make_rti_step
     from sdf_nmpc_tpu_torch.utils import accuracy
 
+    source, functions = VARIANTS[kernel]
+
+    def vs_f64(out, a):
+        packed, pos, latent = a
+        p64 = {k: v.double() if torch.is_tensor(v) else v for k, v in packed.items()
+               if not k.startswith("_")}
+        ref = sdf_fused.sdf_value_grad_plain(p64, pos.double(), latent.double())
+        d = [(o.double() - r).abs() for o, r in zip(out, ref)]
+        return [float(d[0].max()), float(d[0].mean()), float(d[1].max()), float(d[1].mean())]
+
+    captured, run = {"ip_phase": ("ip_phase", lambda a: ip_kernel.ip_phase(*a)),
+                     "sdf_fused_x3": ("sdf", lambda a: sdf_fused.sdf_value_grad(
+                         *a, mode="f32x3"))}[kernel]
     cfg, ocp, layout, _ = accuracy.build_setup(device=dev)
     inputs = bench_inputs(ocp, cfg, layout, MAIN_B, SEED, dev)
     state = make_rti_step(ocp, cfg, budget="cold", with_evals=False)(
         init_state(ocp, inputs.x0), inputs).state
     with Capture() as cap:
         make_rti_step(ocp, cfg, budget="steady", with_evals=False)(state, inputs)
-    calls = cap.args("ip_phase")
+    calls = cap.args(captured)
     libs = {"package": _lib.library()}
     for i, d in enumerate(dirs):
-        lib = ctypes.CDLL(build_ip_variant(d, _lib.BUILD / f"variant-{os.getpid()}-{i}"))
-        for name in ("ip_phase_launch", "ip_phase_geometry"):
+        lib = ctypes.CDLL(build_variant(d, source, _lib.BUILD / f"variant-{os.getpid()}-{i}"))
+        for name in functions:
             getattr(lib, name).argtypes = _lib._SIGNATURES[name]
             getattr(lib, name).restype = ctypes.c_int
         libs[d] = lib
     saved = _lib.library
     times = {name: [[] for _ in calls] for name in libs}
     report = {}
+    if kernel == "sdf_fused_x3":  # the IEEE route on the same inputs, for reference
+        errs = vs_f64(sdf_fused.sdf_value_grad(*calls[0], mode="f32"), calls[0])
+        report["sdf_fused (f32 route)"] = {"f64_err": [errs]}
+        log(f"sdf_fused (f32 route): against f64, value max/mean {errs[0]:.3e}/{errs[1]:.3e}, "
+            f"gradient {errs[2]:.3e}/{errs[3]:.3e}")
     try:
         for r in range(rounds):
             for name, lib in libs.items():
                 _lib.library = lambda _l=lib: _l
                 for j, a in enumerate(calls):
-                    times[name][j].append(cuda_ms(lambda: ip_kernel.ip_phase(*a), reps=5))
+                    times[name][j].append(cuda_ms(lambda: run(a), reps=5))
         want = []
         for name, lib in libs.items():
             _lib.library = lambda _l=lib: _l
-            outs = [ip_kernel.ip_phase(*a) for a in calls]
+            outs = [run(a) for a in calls]
             if name == "package":
                 want = outs
             diff = max(max_abs(g, w) for o, wo in zip(outs, want) for g, w in zip(o, wo))
             same = all(torch.equal(g, w) for o, wo in zip(outs, want) for g, w in zip(o, wo))
-            geo = [ip_kernel.ip_phase_geometry(a[0][0].shape[-1], a[0][1].shape[1], a[2])
-                   for a in calls]
-            report[name] = {"launch_k_s": [a[2] for a in calls], "launch_ms": times[name],
-                            "geometry": geo, "bitwise_equal": same, "max_abs_diff": diff}
-            for (a, ms, g) in zip(calls, times[name], geo):
-                log(f"ip build {name}: launch k_s={a[2]}, {a[3]} iterations: "
-                    f"{', '.join(f'{t:.4f}' for t in ms)} ms over {rounds} rounds; "
-                    f"{g['smem_bytes']} B, {g['blocks_per_sm']} blocks per SM")
-            log(f"ip build {name}: outputs {'equal to' if same else 'differ from'} the "
+            report[name] = {"launch_ms": times[name], "bitwise_equal": same,
+                            "max_abs_diff": diff}
+            if kernel == "sdf_fused_x3":  # value and gradient against the f64 plain version
+                errs = [vs_f64(o, a) for o, a in zip(outs, calls)]
+                report[name]["f64_err"] = errs
+                log(f"{kernel} build {name}: against f64, value max/mean "
+                    f"{errs[0][0]:.3e}/{errs[0][1]:.3e}, gradient {errs[0][2]:.3e}/{errs[0][3]:.3e}")
+            if kernel == "ip_phase":
+                geo = [ip_kernel.ip_phase_geometry(a[0][0].shape[-1], a[0][1].shape[1], a[2])
+                       for a in calls]
+                report[name].update(launch_k_s=[a[2] for a in calls], geometry=geo)
+            for j, ms in enumerate(times[name]):
+                log(f"{kernel} build {name}: launch {j}: "
+                    f"{', '.join(f'{t:.4f}' for t in ms)} ms over {rounds} rounds")
+            log(f"{kernel} build {name}: outputs {'equal to' if same else 'differ from'} the "
                 f"package's build bit for bit (max diff {diff:.3e}); card {card}")
     finally:
         _lib.library = saved
-    log(json.dumps({"ip_builds": report}))
+    log(json.dumps({f"{kernel}_builds": report}))
 
 
 def main(argv=None) -> int:
@@ -1526,6 +1627,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ip-builds", nargs="+", metavar="DIR",
                     help="time kernel 4 built from each DIR against the package's build, then "
                          "stop")
+    ap.add_argument("--sdf-builds", nargs="+", metavar="DIR",
+                    help="time kernel 2's f32x3 route built from each DIR against the "
+                         "package's build, then stop")
     ap.add_argument("--composed", action="store_true",
                     help="run only the composed main path and Nmpc, then stop")
     args = ap.parse_args(argv)
@@ -1534,8 +1638,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     phase_build()
-    if args.ip_builds:
-        phase_ip_builds(dev, card, args.ip_builds)
+    if args.ip_builds or args.sdf_builds:
+        phase_builds(dev, card, "ip_phase" if args.ip_builds else "sdf_fused_x3",
+                     args.ip_builds or args.sdf_builds)
         return 0
     if args.composed:
         _, t_step, steady, state, inputs = phase_main_path(
@@ -1549,6 +1654,11 @@ def main(argv=None) -> int:
     phase_accuracy(dev)
     counts, t_step, steady, state, inputs = phase_main_path(dev, card, per_step=fused_per_step)
     phase_profile(steady, state, inputs, t_step, card)
+    f32 = phase_main_path(dev, card, over=SDF_F32, per_step=f32_per_step,
+                          label="fused path, sdf f32")
+    phase_profile(*f32[2:], f32[1], card, label="fused path, sdf f32")
+    counts["sdf_fused"] = f32[0]["sdf_fused"]
+    del f32
     rows = phase_kernel_numbers(counts, t_step, steady, state, inputs, card)
     counts, t_step, steady, state, inputs = phase_main_path(
         dev, card, over=DWS, per_step=composed_per_step, label="composed path")

@@ -8,10 +8,11 @@ YAML loader produces them, including ``qp_ratio_cap``, which YAML 1.1 reads
 as the string ``'1.0e8'`` (``solver/sqp.py`` converts it with ``float``).
 
 The TPU-only knobs ``matmul_precision`` and ``qp_matmul_precision`` are kept
-so configs carry over, and ignored: every product here is exact IEEE f32.
-``sdf_fused_dtype`` is read by the RTI step: ``f32`` and ``f32x3`` (the
-TPU's three-pass emulation of f32) both run kernel 2 in IEEE f32, and the
-bf16 modes (``bf16``, ``mixed``) raise.
+so configs carry over, and ignored.  ``sdf_fused_dtype`` is read by the RTI
+step: on the card ``f32`` runs kernel 2 in IEEE f32 and ``f32x3`` (the
+default; the TPU's three-pass bf16 emulation of f32) as 3xTF32 on the
+tensor cores; on the CPU both run the exact plain version; the bf16 modes
+(``bf16``, ``mixed``) raise.  Every other product is IEEE f32.
 """
 
 from __future__ import annotations

@@ -237,7 +237,7 @@ __device__ void tri_solve_warps(const float* L, int lds, float* X, int ldx, int 
 
 // In one warp: T (k x k, row-major) += diag(1 / eta_s) with its jitter, then
 // factored in place (lower triangle), in chol_serial's order.
-__device__ void wood_factor_warp(float* T, const float* eta_s, int k, float eps) {
+__device__ inline void wood_factor_warp(float* T, const float* eta_s, int k, float eps) {
   const int lane = threadIdx.x & 31;
   for (int s = lane; s < k; s += 32) {
     const float dsi = fminf(1.f / fmaxf(eta_s[s], 1e-30f), 1e30f);
@@ -263,7 +263,7 @@ __device__ void wood_factor_warp(float* T, const float* eta_s, int k, float eps)
 // shared), T factored in Lt (k x k); Cs row s is row sidx[s] of C (leading
 // dimension ldc), Xs rows 0..k-1 of X.  `u`: shared scratch of k words.
 // With `u_ready` the caller has already put Cs x into u.
-__device__ void wood_apply_warp(const float* Lt, const float* C, int ldc, const int* sidx,
+__device__ inline void wood_apply_warp(const float* Lt, const float* C, int ldc, const int* sidx,
                                 const float* X, int ldx, float* x, float* u, int n, int k,
                                 bool u_ready) {
   const int lane = threadIdx.x & 31;

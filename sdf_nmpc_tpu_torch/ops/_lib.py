@@ -25,13 +25,14 @@ import torch
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("lin_y_sens.cu", "erk4_sens.cu", "sdf_fused.cu", "condense.cu", "ip_phase.cu",
-           "qp_solve.cu")
+SOURCES = ("lin_y_sens.cu", "erk4_sens.cu", "sdf_fused.cu", "sdf_fused_x3.cu", "condense.cu",
+           "ip_phase.cu", "qp_solve.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-launch_counts = {"lin_y_sens": 0, "erk4_sens": 0, "sdf_fused": 0, "condense": 0, "ip_phase": 0,
-                 "factor_solve": 0, "solve": 0, "stiff_factor_solve": 0, "stiff_resolve": 0}
+launch_counts = {"lin_y_sens": 0, "erk4_sens": 0, "sdf_fused": 0, "sdf_fused_x3": 0,
+                 "condense": 0, "ip_phase": 0, "factor_solve": 0, "solve": 0,
+                 "stiff_factor_solve": 0, "stiff_resolve": 0}
 
 # what the last build printed (ptxas register / spill report)
 build_info = {"log": "", "path": None}
@@ -44,10 +45,13 @@ _SIGNATURES = {
     "lin_y_sens_launch": [_P] * 11 + [_I, _I, _P, _I, _P],
     "erk4_sens_launch": [_P] * 6 + [_I, _I, _P, _I, _P],
     "sdf_fused_launch": [_P] * 15 + [_I] * 5 + [_F, _P],
+    "sdf_fused_x3_launch": [_P] * 9 + [_I] * 6 + [_F, _P],
+    "sdf_fused_x3_geometry": [_P] * 3,
     "condense_launch": [_P] * 18 + [_I] * 6 + [_P],
     "ip_phase_launch": [_P] * 12 + [_I] * 7 + [_F] * 5 + [_P],
     "ip_phase_geometry": [_I] * 3 + [_P] * 3,
     "factor_solve_launch": [_P] * 4 + [_I] * 3 + [_P],
+    "factor_solve_geometry": [_I] * 2 + [_P] * 3,
     "solve_launch": [_P] * 3 + [_I] * 3 + [_P],
     "stiff_factor_solve_launch": [_P] * 8 + [_I] * 4 + [_P],
     "stiff_resolve_launch": [_P] * 6 + [_I] * 4 + [_P],

@@ -19,13 +19,17 @@ primals (:447-452, :494-496, :516-532, :568-572); the TPU kernels' lanes
 layout and their padding to 128 scenarios have no counterpart here.
 
 On CUDA tensors each wrapper launches its kernel of ``csrc/qp_solve.cu``
-(f32, else it raises); on CPU tensors it runs its plain version (f32 or
+(f32, else it raises; kernel 5 on ``csrc/ip_dense.cuh``'s blocked Cholesky
+and warp-level solves, kernel 6 on its warp-level solves, kernels 7 and 8 on
+``csrc/qp_device.cuh``); on CPU tensors it runs its plain version (f32 or
 f64), ``torch.linalg.cholesky`` and ``torch.cholesky_solve``.  A failed
 factorization gives NaN in the plain version, as ``jnp.linalg.cholesky``
 does; the kernels clamp the pivot, as the TPU kernels do.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -93,6 +97,15 @@ def _factor_solve_cuda(M, RHS):
     _lib.check(err, "factor_solve")
     _lib.launch_counts["factor_solve"] += 1
     return X, L
+
+
+def factor_solve_geometry(n, r) -> dict:
+    """Kernel 5's launch at (n, r) on the current card: threads per block,
+    dynamic shared bytes per block, resident blocks per SM."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    err = _lib.library().factor_solve_geometry(n, r, *[ctypes.byref(v) for v in vals])
+    _lib.check(err, "factor_solve_geometry")
+    return dict(zip(("threads", "smem_bytes", "blocks_per_sm"), (v.value for v in vals)))
 
 
 def _solve_cuda(L, RHS):

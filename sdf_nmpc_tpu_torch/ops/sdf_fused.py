@@ -15,21 +15,35 @@ cos(xb)] with xb = (x @ dirs) kron freqs, demb_k = [e_k, cos(xb) J_k,
 sin(xb + pi/2); in f32 the two differ for large |xb|, so this path mirrors
 the JAX kernel path and ``NeuralDF.forward`` mirrors ``module.apply``.
 
-On a CUDA tensor ``sdf_value_grad`` launches ``csrc/sdf_fused.cu``; on a CPU
-tensor it runs the plain version below (the same stacked-tangent algebra with
-``torch.matmul``).
+``sdf_value_grad`` takes the solver's ``sdf_fused_dtype`` as ``mode``:
+
+- ``f32`` (the JAX kernel's HIGHEST products): on a CUDA tensor it launches
+  ``csrc/sdf_fused.cu``, IEEE f32 on the CUDA cores;
+- ``f32x3`` (the solver's default; the JAX kernel's ``_dot3``, a bf16x3 split
+  on the MXU): on a CUDA tensor it launches ``csrc/sdf_fused_x3.cu``, the
+  tensor-core counterpart, a 3xTF32 split whose plain version is
+  ``sdf_value_grad_x3_plain`` (the same rounding and grouping in torch f32
+  matmuls);
+- on a CPU tensor, either mode runs the exact plain version
+  ``sdf_value_grad_plain``, as the JAX package runs its autodiff path off the
+  TPU (``make_fused_sdf_vg`` returns None there), so no CPU result depends
+  on the mode.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ..nn.embeddings import PositionEmbedding
 from . import _lib
 
+MODES = ("f32", "f32x3")
 _ACT_CODES = {"sin": 0, "relu": 1, "softplus": 2}
-_HID = 256  # the kernel's padded hidden width
-_KC = 32  # the kernel's weight-chunk rows
+_HID = 256  # the kernels' padded hidden width
+_KC = 32  # sdf_fused.cu's weight-chunk rows
+_KC3 = 16  # sdf_fused_x3.cu's chunk rows (weights) and columns (inputs)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -85,16 +99,17 @@ def _act_pair(z, act: str, w0: float):
     raise ValueError(act)
 
 
-def sdf_value_grad_plain(packed, pos, latent):
-    """pos (P, 3), latent (P, L) -> (df (P,), grad (P, 3))."""
+def _value_grad(packed, pos, latent, mm):
+    """The stacked-tangent pass with ``mm(A, i)`` for the products of dense
+    layer i (1-4); the head in f32."""
     emb, demb = embed_with_tangents(packed["embed_fn"], pos)
     P0 = torch.cat([emb, latent], dim=-1)  # (P, in1)
     T0 = torch.cat([demb, demb.new_zeros(demb.shape[:2] + (latent.shape[-1],))], dim=-1)
     act, w0 = packed["act"], packed["w0"]
 
     def dense_pair(Pr, T, i):
-        h, hp = _act_pair(Pr @ packed[f"W{i}"] + packed[f"b{i}"], act, w0)
-        return h, hp[:, None, :] * (T @ packed[f"W{i}"])
+        h, hp = _act_pair(mm(Pr, i) + packed[f"b{i}"], act, w0)
+        return h, hp[:, None, :] * mm(T, i)
 
     H, T = dense_pair(P0, T0, 1)
     H, T = dense_pair(H, T, 2)
@@ -102,6 +117,46 @@ def sdf_value_grad_plain(packed, pos, latent):
     H, T = dense_pair(H, T, 4)
     df = H @ packed["W5"] + packed["b5"]
     return df[:, 0], (T @ packed["W5"])[..., 0]
+
+
+def sdf_value_grad_plain(packed, pos, latent):
+    """pos (P, 3), latent (P, L) -> (df (P,), grad (P, 3)), exact products."""
+    return _value_grad(packed, pos, latent, lambda A, i: A @ packed[f"W{i}"])
+
+
+def tf32_round(x):
+    """x (float32) rounded to TF32, 10 mantissa bits, to nearest with ties
+    away from zero: the rounding of ``cvt.rna.tf32.f32``."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_tf32(x):
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def _x3_split(packed, i):
+    """(W_hi, W_lo) of dense layer i (cached on ``packed``)."""
+    cache = packed.setdefault("_x3_plain", {})
+    if i not in cache:
+        cache[i] = _split_tf32(packed[f"W{i}"].to(torch.float32))
+    return cache[i]
+
+
+def sdf_value_grad_x3_plain(packed, pos, latent):
+    """pos (P, 3), latent (P, L) f32 -> (df (P,), grad (P, 3)) in the
+    kernel's 3xTF32 numerics: each product of dense layers 1-4 is
+    A_hi W_hi + (A_hi W_lo + A_lo W_hi) with hi = tf32(a), lo = tf32(a - hi),
+    the grouping of the JAX kernel's ``_dot3`` (which the kernel keeps
+    8-deep step by step), in f32 matmuls; bias, activation and head in
+    f32."""
+    def mm3(A, i):
+        hi, lo = _split_tf32(A)
+        w_hi, w_lo = _x3_split(packed, i)
+        return hi @ w_hi + (hi @ w_lo + lo @ w_hi)
+
+    return _value_grad(packed, pos, latent, mm3)
 
 
 def _kernel_weights(packed) -> dict:
@@ -161,9 +216,87 @@ def _sdf_value_grad_cuda(packed, pos, latent):
     return df, grad
 
 
-def sdf_value_grad(packed, pos, latent):
-    """pos (P, 3), latent (P, L) -> (df (P,), grad (P, 3)); kernel on CUDA
-    tensors, plain version on CPU tensors."""
+def _x3_weights(packed) -> dict:
+    """sdf_fused_x3.cu's weights (cached on ``packed``): the four dense
+    layers as one sequence of 16-row chunks, zero-padded to width 256, the
+    input rows of layers 1 and 3 as [embedding, padded to a multiple of 16 |
+    latent, likewise], split once into W_hi = tf32(W) and W_lo = tf32(W -
+    W_hi) (the split of ``sdf_value_grad_x3_plain``); the biases as (4,
+    256), the head padded to 256.
+
+    ``W`` (n_chunks, 256 * 32) is the chunks as the kernel reads them: per
+    output column n, 32 words, per 8-row block kb at slot kb ^ (n % 2) and
+    per lane t of a quad [hi(t), hi(t + 4), lo(t), lo(t + 4)] (rows of the
+    block), so that one 16-byte load gives a lane its B fragments."""
+    if "_x3" in packed:
+        return packed["_x3"]
+    if any(s > _HID for s in packed["sizes"]):
+        raise ValueError(f"the sdf kernel takes hidden widths <= {_HID}, got {packed['sizes']}")
+    nemb, L, s1 = packed["nemb"], packed["L"], packed["sizes"][1]
+    ke, kl = _round_up(nemb, _KC3), _round_up(L, _KC3)
+    dev = packed["W1"].device
+
+    def block(w, rows):
+        out = torch.zeros(rows, _HID, dtype=torch.float32, device=dev)
+        out[: w.shape[0], : w.shape[1]] = w
+        return out
+
+    def inputs(w):  # rows [embedding | latent] at their padded offsets
+        return torch.cat([block(w[:nemb], ke), block(w[nemb:], kl)])
+
+    W = torch.cat([inputs(packed["W1"]), block(packed["W2"], _HID),
+                   block(packed["W3"][:s1], _HID), inputs(packed["W3"][s1:]),
+                   block(packed["W4"], _HID)])
+    hi, lo = (t.view(-1, 2, 2, 4, _HID) for t in _split_tf32(W))  # chunk, kb, row // 4, row % 4, n
+    lanes = torch.stack([hi[:, :, 0], hi[:, :, 1], lo[:, :, 0], lo[:, :, 1]], -1)
+    lanes = lanes.permute(0, 3, 1, 2, 4)  # chunk, n, kb, t, 4
+    lanes[:, 1::2] = lanes[:, 1::2].flip(2)  # odd columns: the 8-row blocks swap slots
+    bias = torch.stack([block(packed[f"b{i}"][None], 1)[0] for i in range(1, 5)])
+    kw = dict(W=lanes.reshape(lanes.shape[0], -1).contiguous(), bias=bias,
+              w5=block(packed["W5"][:, 0][None], 1)[0],
+              b5=packed["b5"].to(torch.float32).contiguous(), nxe=ke // _KC3,
+              nxl=kl // _KC3)
+    packed["_x3"] = kw
+    return kw
+
+
+def _sdf_value_grad_x3_cuda(packed, pos, latent):
+    P = pos.shape[0]
+    kw = _x3_weights(packed)
+    emb, demb = embed_with_tangents(packed["embed_fn"], pos)
+    emb, demb = emb.contiguous(), demb.contiguous()
+    weights = [kw[k] for k in ("W", "bias", "w5", "b5")]
+    _lib.require_cuda_f32("sdf_value_grad", pos, latent, emb, demb, *weights)
+    _lib.require_shape("sdf_value_grad pos", pos, (P, 3))
+    _lib.require_shape("sdf_value_grad latent", latent, (P, packed["L"]))
+    df = torch.empty(P, dtype=torch.float32, device=pos.device)
+    grad = torch.empty(P, 3, dtype=torch.float32, device=pos.device)
+    err = _lib.library().sdf_fused_x3_launch(
+        *[t.data_ptr() for t in (emb, demb, latent, *weights, df, grad)],
+        P, packed["nemb"], packed["L"], kw["nxe"], kw["nxl"], _ACT_CODES[packed["act"]],
+        packed["w0"], _lib.stream_ptr())
+    _lib.check(err, "sdf_value_grad (f32x3)")
+    _lib.launch_counts["sdf_fused_x3"] += 1
+    return df, grad
+
+
+def sdf_fused_x3_geometry() -> dict:
+    """The f32x3 kernel's launch on the current card: threads per block,
+    dynamic shared bytes per block, resident blocks per SM."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    err = _lib.library().sdf_fused_x3_geometry(*[ctypes.byref(v) for v in vals])
+    _lib.check(err, "sdf_fused_x3_geometry")
+    return dict(zip(("threads", "smem_bytes", "blocks_per_sm"), (v.value for v in vals)))
+
+
+def sdf_value_grad(packed, pos, latent, mode="f32"):
+    """pos (P, 3), latent (P, L) -> (df (P,), grad (P, 3)).  On CUDA tensors
+    the kernel of ``mode`` (``f32``: sdf_fused.cu, ``f32x3``: sdf_fused_x3.cu);
+    on CPU tensors the exact plain version, whatever the mode."""
+    if mode not in MODES:
+        raise ValueError(f"sdf_value_grad mode {mode!r}: one of {MODES}")
     if pos.is_cuda:
+        if mode == "f32x3":
+            return _sdf_value_grad_x3_cuda(packed, pos, latent)
         return _sdf_value_grad_cuda(packed, pos, latent)
     return sdf_value_grad_plain(packed, pos, latent)

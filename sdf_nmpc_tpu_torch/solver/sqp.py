@@ -11,6 +11,7 @@ directly:
   9. ``ops.lin_kernels.erk4_sens``    RK4 + A, B (rates, wrench, props), the
      stage residual and its Jacobians then by ``torch.func``
   2. ``ops.sdf_fused.sdf_value_grad`` NeuralDF value + position gradient
+     (``solver.sdf_fused_dtype``: f32 or the default 3xTF32 route)
   3. ``ops.condense_kernel.condense`` condensing recursion + condensed rows
   4. ``ops.ip_kernel.ip_phase``       (inside ``solve_qp``) two IP phases, or
   5-8. ``ops.qp_kernels``             (inside ``solve_qp``) the composed QP
@@ -208,7 +209,9 @@ def _check_supported(cfg, N):
     # value raises rather than being dropped
     ported = {"chol_impl": ("auto", ("auto", "fused", "pallas")),
               "lin_impl": ("auto", ("auto", "pallas")), "fused_sdf": (True, (True,)),
-              # IEEE f32 on the card computes what f32x3 emulates on the TPU
+              # kernel 2's routes on the card: f32 IEEE on the CUDA cores (the
+              # JAX kernel's HIGHEST), f32x3 3xTF32 on the tensor cores (its
+              # bf16x3 _dot3); the CPU runs the exact plain version for both
               "sdf_fused_dtype": ("f32x3", ("f32", "f32x3")),
               "qp_data_bf16": (False, (False,)), "qp_compute_dtype": (None, (None,))}
     bad = {k: s.get(k, d) for k, (d, ok) in ported.items() if s.get(k, d) not in ok}
@@ -265,7 +268,8 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
     # for the terminal row (differentiated by autograd, as in JAX) and evals
     packed = sdf_fused.pack_neural_df_params(ocp.sdf, dtype)
     net = copy.deepcopy(ocp.sdf).to(dtype).requires_grad_(False)
-    value_grad = lambda pos, latent: sdf_fused.sdf_value_grad(packed, pos, latent)
+    sdf_mode = str(cfg.solver.get("sdf_fused_dtype", "f32x3"))
+    value_grad = lambda pos, latent: sdf_fused.sdf_value_grad(packed, pos, latent, mode=sdf_mode)
 
     cheap = ocp.h_stage_cheap
     n_cheap = len(ocp.cheap_stage_indices)

@@ -359,3 +359,106 @@ def test_lin_y_sens_kernel_matches_plain_families(cuda_device, model):
 
 def max_abs(a, b):
     return float((a.double() - b.double()).abs().max())
+
+
+@pytest.mark.gpu
+def test_sdf_fused_x3_kernel_matches_plain_trained_net(cuda_device):
+    """Kernel 2's f32x3 route (3xTF32 on the tensor cores) on the trained
+    4x256 net (w0=20), 1037 points (not a multiple of the 32-point tile),
+    against its own plain version (the same split and grouping in f32
+    matmuls): value 2e-4, gradient 2e-3 (tests/test_ops.py); the f32 route
+    is not launched."""
+    from sdf_nmpc_tpu_torch.nn.weights import load_prod_latents, load_prod_sdf
+    from sdf_nmpc_tpu_torch.ops.sdf_fused import (
+        pack_neural_df_params,
+        sdf_value_grad,
+        sdf_value_grad_x3_plain,
+    )
+
+    rng = np.random.default_rng(41)
+    packed = pack_neural_df_params(load_prod_sdf(device=cuda_device))
+    lat = load_prod_latents()
+    P = 1037
+    pos = t32(rng.normal(size=(P, 3)) * 1.5).to(cuda_device)
+    latent = t32(lat[rng.integers(0, lat.shape[0], P)]).to(cuda_device)
+    n0, n1 = _count("sdf_fused_x3"), _count("sdf_fused")
+    df, gr = sdf_value_grad(packed, pos, latent, mode="f32x3")
+    assert (_count("sdf_fused_x3"), _count("sdf_fused")) == (n0 + 1, n1)
+    df_p, gr_p = sdf_value_grad_x3_plain(packed, pos, latent)
+    print(f"sdf_fused_x3 trained net: value {max_abs(df, df_p):.2e}, grad {max_abs(gr, gr_p):.2e}")
+    torch.testing.assert_close(df, df_p, atol=2e-4, rtol=0)
+    torch.testing.assert_close(gr, gr_p, atol=2e-3, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("embed, act", [("oct", "sin"), ("none", "relu"), ("pos", "softplus")])
+def test_sdf_fused_x3_kernel_small_random_net(cuda_device, embed, act):
+    """The f32x3 route on a seeded 4x32 net (latent 16, res='full') per
+    activation, 45 points, against its plain version at the same
+    tolerances; the value of a padded column (softplus(0) = log 2) must not
+    leak through the zero weight rows."""
+    from sdf_nmpc_tpu_torch.nn import NeuralDF
+    from sdf_nmpc_tpu_torch.ops.sdf_fused import (
+        pack_neural_df_params,
+        sdf_value_grad,
+        sdf_value_grad_x3_plain,
+    )
+
+    torch.manual_seed(7)
+    net = NeuralDF(size_latent=16, layer_sizes=(32, 32, 32, 32), embed=embed, act=act, w0=2.0,
+                   res="full").to(cuda_device)
+    packed = pack_neural_df_params(net)
+    rng = np.random.default_rng(43)
+    pos, latent = (t32(a).to(cuda_device) for a in (rng.normal(size=(45, 3)),
+                                                     rng.normal(size=(45, 16)) * 0.3))
+    n0 = _count("sdf_fused_x3")
+    got = sdf_value_grad(packed, pos, latent, mode="f32x3")
+    assert _count("sdf_fused_x3") == n0 + 1
+    for g, w, tol in zip(got, sdf_value_grad_x3_plain(packed, pos, latent), (2e-4, 2e-3)):
+        torch.testing.assert_close(g, w, atol=tol, rtol=0)
+
+
+def _backward_error(M, X, RHS):
+    """Per scenario, max |M x - b| / (max |M| max |x| + max |b|) over the
+    rows of X, in f64 (chip_smoke.py's backward_error)."""
+    M, X, RHS = M.double(), X.double(), RHS.double()
+    res = (M @ X.transpose(1, 2) - RHS.transpose(1, 2)).abs().flatten(1).amax(-1)
+    size = M.abs().flatten(1).amax(-1) * X.abs().flatten(1).amax(-1)
+    return res / (size + RHS.abs().flatten(1).amax(-1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [44, 80, 128])
+@pytest.mark.parametrize("r", [1, 2, 9])
+def test_factor_solve_and_solve_kernel_shapes(cuda_device, n, r):
+    """Kernel 5 (blocked Cholesky and warp-level solves) and kernel 6 (the
+    same solves against its factor) at n not a multiple of the 8-column
+    panel (44), the main size (80) and above the 128 threads of a block
+    (128), with 1, 2 and 9 right-hand sides (more than the 4 warps): X
+    within 1e-4 and L within 1e-5 of their largest entries of the plain
+    version, L zero above the diagonal, and the backward error of each X
+    at most 10 times the plain version's plus 1e-6 (chip_smoke.py's rule for
+    kernels 5-8)."""
+    from sdf_nmpc_tpu_torch.ops.qp_kernels import (
+        factor_solve,
+        factor_solve_plain,
+        solve,
+        solve_plain,
+    )
+
+    rng = np.random.default_rng([n, r])
+    G = rng.normal(size=(200, n, n))
+    A = t32(np.einsum("bij,bkj->bik", G, G) + 10 * np.eye(n)).to(cuda_device)
+    RHS, R2 = (t32(rng.normal(size=(200, r, n))).to(cuda_device) for _ in range(2))
+    n5, n6 = _count("factor_solve"), _count("solve")
+    X, L = factor_solve(A, RHS)
+    X2 = solve(L, R2)
+    assert (_count("factor_solve"), _count("solve")) == (n5 + 1, n6 + 1)
+    Xp, Lp = factor_solve_plain(A, RHS)
+    X2p = solve_plain(Lp, R2)
+    assert _rel(X, Xp) < 1e-4 and _rel(L, Lp) < 1e-5 and _rel(X2, X2p) < 1e-4
+    assert bool((torch.triu(L, 1) == 0).all())
+    for label, x, xp, b in (("factor_solve", X, Xp, RHS), ("solve", X2, X2p, R2)):
+        bk, bp = (float(_backward_error(A, v, b).max()) for v in (x, xp))
+        print(f"{label} n={n} r={r}: backward error kernel {bk:.2e}, plain {bp:.2e}")
+        assert bk <= 10 * bp + 1e-6, label
