@@ -47,11 +47,12 @@ failure raises and exits non-zero before the result line:
    bytes, resident blocks per SM);
 8. composed main path: the same at B=8192 with dual_warm_start (one cold
    step then 20 chained steady steps), its busy share, and per-kernel
-   numbers for kernels 5-8, the library calls beside kernels 5 and 6,
-   kernel 5's launch geometry;
+   numbers for kernels 5-8, the library calls beside kernels 5 and 6, the
+   launch geometry of kernels 5, 7 and 8;
 9. the ``Nmpc`` controller at B=1: about 30 ticks on waypoints, each fed
    the predicted next state: the cold -> warm -> steady promotion, no
-   failure, clipped finite commands, per-tick latency;
+   failure, clipped finite commands, per-tick latency; then one more
+   tick's launches of kernels 5-8, each timed at B=1 (CUDA events);
 10. ``make_batched_step`` once at B=8192: BatchStats against a reduction of
    the results;
 11. kernel checks, per family: kernel 9 (rates, wrench, props) or kernel 1
@@ -63,6 +64,8 @@ failure raises and exits non-zero before the result line:
 12. accuracy, per family: its 8 cold scenarios against the independent
    oracle (tests/golden/oracle_u0.npz), and the warm / steady replays of
    warm_ref_<model>.npz, with the named ticks of accuracy.SHORT_TICKS;
+   props also with sdf_fused_dtype f32, so that its short tick stands
+   under both kernel-2 routes;
 13. main path, per family: as phase 6 at B=8192, its busy share, and
    kernel 9's (or 1's) time, bound and plain time on a steady step's
    inputs, beside the time of the torch.func residual rows (kernel 9 only);
@@ -74,22 +77,23 @@ The last lines are the ``kernels`` JSON (all nine kernels, kernel 2 as one
 row per route, each with its per-launch times ``launch_ms``; the rows of
 kernels 1 and 9 carry each model's numbers under ``per_model``, and at top
 level att's and props'; kernel 4's row ``launch_k_s`` and ``geometry``,
-kernel 2's f32x3 row and kernel 5's row their ``geometry``; the f32 row's
-``launches`` come from the f32 run of phase 6), the card's name and power
-limit, and
-``{"ok": true, "device": {...}}``.
+kernel 2's f32x3 row and the rows of kernels 5, 7 and 8 their
+``geometry``; the f32 row's ``launches`` come from the f32 run of phase 6),
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
-Two options run a part alone, to compare source trees on one card (they
+Options that run a part alone, to compare source trees on one card (they
 print no result line):
 
     python3 chip_smoke.py --ip-builds DIR [DIR ...]
     python3 chip_smoke.py --sdf-builds DIR [DIR ...]
-        kernel 4 (or kernel 2's f32x3 route) built from each DIR's
-        ip_phase.cu (sdf_fused_x3.cu) and the headers beside it against the
-        package's build, on the launches of one steady step of the fused main
-        path: each launch's time, the builds interleaved round by round, each
-        build's outputs against the package's, bit for bit, and (kernel 2)
-        against the f64 plain version;
+    python3 chip_smoke.py --qp-builds DIR [DIR ...]
+        kernel 4 (kernel 2's f32x3 route, kernels 5-8) built from each DIR's
+        ip_phase.cu (sdf_fused_x3.cu, qp_solve.cu) and the headers beside it
+        against the package's build, on the launches of one steady step of
+        the fused main path (for kernels 5-8 the composed one): each launch's
+        time, the builds interleaved round by round, each build's outputs
+        against the package's, bit for bit (per output for kernels 5-8), and
+        (kernel 2) against the f64 plain version;
     python3 chip_smoke.py --composed
         phases 1, 2, 8 (without the kernel numbers) and 9: the composed main
         path and the ``Nmpc`` controller; copied into another tree, the same
@@ -949,7 +953,8 @@ def phase_build():
     info = _lib.build_info
     log(f"build: {time.perf_counter() - t0:.1f} s ({info['path']})")
     for line in info["log"].splitlines():
-        if line.startswith("==") or "registers" in line or "spill" in line or "error" in line:
+        if line.startswith("==") or any(w in line for w in ("Function", "registers", "spill",
+                                                             "error")):
             log("  " + line.strip())
 
 
@@ -1251,12 +1256,16 @@ def phase_composed_numbers(counts, t_step, steady, state, inputs, card):
                    lambda a, _n=name: qp_cost(_n, a), library_call(name))
             for name in COMPOSED_KERNELS}
     rows = kernel_rows(runs, calls, counts, errs, peaks, part)
-    fs_row = next(r for r in rows if r["name"] == "factor_solve")
-    M, RHS = calls["factor_solve"][0]
-    fs_row["geometry"] = qp_kernels.factor_solve_geometry(M.shape[-1], RHS.shape[1])
-    log(f"  factor_solve (n={M.shape[-1]}, r={RHS.shape[1]}): "
-        f"{fs_row['geometry']['threads']} threads and {fs_row['geometry']['smem_bytes']} B of "
-        f"shared memory per block, {fs_row['geometry']['blocks_per_sm']} blocks per SM")
+    sizes = {"factor_solve": lambda a: (a[0].shape[-1], a[1].shape[1]),
+             "stiff_factor_solve": lambda a: (a[0].shape[-1], a[1].shape[1], a[2].shape[1]),
+             "stiff_resolve": lambda a: (a[0].shape[-1], a[4].shape[1], a[3].shape[1])}
+    for row in rows:
+        if row["name"] in sizes:
+            size = sizes[row["name"]](calls[row["name"]][0])
+            geo = row["geometry"] = getattr(qp_kernels, f"{row['name']}_geometry")(*size)
+            log(f"  {row['name']} (n, r{', k' if len(size) == 3 else ''} = {size}): "
+                f"{geo['threads']} threads and {geo['smem_bytes']} B of shared memory per "
+                f"block, {geo['blocks_per_sm']} blocks per SM")
     k_sum = sum(r["ms"] for r in rows)
     log(f"kernels 5-8: {k_sum:.3f} ms of the {t_step * 1e3:.3f} ms chained steady step "
         f"({k_sum / (t_step * 1e3):.1%}); card {card}")
@@ -1330,6 +1339,16 @@ def phase_nmpc(dev, card, ticks=31, model=None, over=DWS):
     ms = np.asarray(times[1:]) * 1e3
     dws = bool(cfg.solver.get("dual_warm_start", False))
     label = f"Nmpc, {model or 'att'}, B=1, {'dual warm start' if dws else 'default settings'}"
+    if dws:  # one more tick's launches of kernels 5-8, each timed by CUDA events
+        from sdf_nmpc_tpu_torch.ops import qp_kernels
+
+        with Capture() as cap:
+            nmpc.solve()
+        for name in COMPOSED_KERNELS:
+            per = [cuda_ms(lambda: getattr(qp_kernels, name)(*a), reps=20) for a in cap.args(name)]
+            log(f"{label}: {name} at B=1, {len(per)} launches in one tick: median "
+                f"{np.median(per) * 1e3:.2f} us per launch (min {min(per) * 1e3:.2f}, max "
+                f"{max(per) * 1e3:.2f}); card {card}")
     log(f"{label}, {ticks} ticks: budgets {budgets[:6]}... "
         f"({budgets.count('cold')} cold, {budgets.count('warm')} warm, "
         f"{budgets.count('steady')} steady); fail counts {sorted(set(fails))}; last u "
@@ -1407,16 +1426,18 @@ def phase_family_checks(dev, model):
     torch.cuda.synchronize()
 
 
-def phase_family_accuracy(dev, model) -> dict:
+def phase_family_accuracy(dev, model, over=None, label=None) -> dict:
     """The family's cold scenarios against the oracle and its warm / steady
     replays, under the CI gate; a named tick of accuracy.SHORT_TICKS under
-    its own limit."""
+    its own limit.  ``over``: solver overrides (props runs with the defaults
+    and with kernel 2's IEEE route, SDF_F32), ``label`` their name."""
     from sdf_nmpc_tpu_torch.utils import accuracy as acc
 
-    cold = acc.check_accuracy(device=dev, model=model)
-    warm = acc.check_warm_accuracy(device=dev, budget="warm", model=model)
-    steady = acc.check_warm_accuracy(device=dev, budget="steady", model=model)
+    cold = acc.check_accuracy(device=dev, solver_over=over, model=model)
+    warm = acc.check_warm_accuracy(device=dev, budget="warm", solver_over=over, model=model)
+    steady = acc.check_warm_accuracy(device=dev, budget="steady", solver_over=over, model=model)
     short, limit = acc.short_tick(model)
+    label = label or model
     g = acc.replay_gates(warm, steady, exempt=short)
     rows = (("cold vs oracle", cold["u0_mean_err"], cold["u0_max_err"], cold["n_ok"],
              cold["n_scen"]),
@@ -1424,18 +1445,18 @@ def phase_family_accuracy(dev, model) -> dict:
              g["warm_max"], warm["n_ok"], warm["n_solves"]),
             ("steady", g["steady_mean"], g["steady_max"], steady["n_ok"], steady["n_solves"]))
     for name, mean, mx, n_ok, n in rows:
-        log(f"accuracy {model} {name}: u0 mean {mean:.3e} max {mx:.3e}, {n_ok}/{n} status OK, "
+        log(f"accuracy {label} {name}: u0 mean {mean:.3e} max {mx:.3e}, {n_ok}/{n} status OK, "
             f"CI gate {'pass' if acc.ci_gate_ok(mean, mx) else 'FAIL'}, strict <= "
             f"{acc.CONTRACT_MAX}: {'pass' if mx <= acc.CONTRACT_MAX else 'miss'}")
     short_ok = short is None or g["exempt_err"] <= limit
     if short is not None:
-        log(f"accuracy {model} warm scenario/tick {short}: u0 err {g['exempt_err']:.4e}, limit "
+        log(f"accuracy {label} warm scenario/tick {short}: u0 err {g['exempt_err']:.4e}, limit "
             f"{limit:g}: {'pass' if short_ok else 'FAIL'}")
     for name, mean, mx, n_ok, n in rows:
         if n_ok != n or not acc.ci_gate_ok(mean, mx):
-            raise AssertionError(f"accuracy {model} {name}: gate failed")
+            raise AssertionError(f"accuracy {label} {name}: gate failed")
     if not short_ok:
-        raise AssertionError(f"accuracy {model}: warm scenario/tick {short} beyond its limit")
+        raise AssertionError(f"accuracy {label}: warm scenario/tick {short} beyond its limit")
     return {"accuracy_ok": all(r[2] <= acc.CONTRACT_MAX for r in rows),
             "u0_max_err": cold["u0_max_err"], "u0_warm_max_err": g["warm_max"],
             "u0_steady_max_err": g["steady_max"]}
@@ -1502,6 +1523,9 @@ def phase_families(dev, card):
     for model in ERK4_FAMILIES + LIN_FAMILIES:
         phase_family_checks(dev, model)
         report[model] = phase_family_accuracy(dev, model)
+        if model == "props":  # its short tick under both kernel-2 routes
+            label = f"{model}, sdf f32"
+            report[label] = phase_family_accuracy(dev, model, over=SDF_F32, label=label)
         counts, t_step, steady, state, inputs = phase_main_path(
             dev, card, per_step=family_per_step(model), label=f"{model} fused path",
             model=model)
@@ -1513,10 +1537,13 @@ def phase_families(dev, card):
     return per_kernel
 
 
-# kernel -> (its source, its C functions) for the --ip-builds / --sdf-builds
-# comparisons
-VARIANTS = {"ip_phase": ("ip_phase.cu", ("ip_phase_launch", "ip_phase_geometry")),
-            "sdf_fused_x3": ("sdf_fused_x3.cu", ("sdf_fused_x3_launch", "sdf_fused_x3_geometry"))}
+# source -> (its C functions, the kernels timed) for --ip-builds, --sdf-builds
+# and --qp-builds
+VARIANTS = {"ip_phase.cu": (("ip_phase_launch", "ip_phase_geometry"), ("ip_phase",)),
+            "sdf_fused_x3.cu": (("sdf_fused_x3_launch", "sdf_fused_x3_geometry"),
+                                ("sdf_fused_x3",)),
+            "qp_solve.cu": (("factor_solve_launch", "solve_launch", "stiff_factor_solve_launch",
+                             "stiff_resolve_launch"), tuple(COMPOSED_KERNELS))}
 
 
 def build_variant(src_dir: str, source: str, out_dir) -> str:
@@ -1531,28 +1558,29 @@ def build_variant(src_dir: str, source: str, out_dir) -> str:
                 [nvcc, *_lib.ARCH, "-shared", "-o", str(lib), str(obj)]):
         run = subprocess.run(cmd, capture_output=True, text=True)
         for line in (run.stdout + run.stderr).splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if "registers" in line or "spill" in line or "error" in line or "Function" in line:
                 log(f"  {src_dir}: {line.strip()}")
         if run.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src_dir}")
     return str(lib)
 
 
-def phase_builds(dev, card, kernel, dirs, rounds=3):
-    """``kernel`` (kernel 4 or kernel 2's f32x3 route) built from other
-    source trees against the package's build, on its launches of one steady
-    step of the fused main path (B=MAIN_B): each launch's time, the builds
-    interleaved round by round, whether each build's outputs equal the
-    package's bit for bit, and for kernel 2 how far its value and gradient
-    lie from the f64 plain version.  A tree must keep the package's C
-    interface and host-side layout."""
+def phase_builds(dev, card, source, dirs, rounds=3):
+    """The kernels of ``source`` (kernel 4, kernel 2's f32x3 route, or
+    kernels 5-8) built from other source trees against the package's build,
+    on their launches of one steady step of the main path that runs them
+    (B=MAIN_B; the composed path for kernels 5-8): each launch's time, the
+    builds interleaved round by round, whether each build's outputs equal
+    the package's bit for bit, and for kernel 2 how far its value and
+    gradient lie from the f64 plain version.  A tree must keep the package's
+    C interface and host-side layout."""
     import ctypes
 
-    from sdf_nmpc_tpu_torch.ops import _lib, ip_kernel, sdf_fused
+    from sdf_nmpc_tpu_torch.ops import _lib, ip_kernel, qp_kernels, sdf_fused
     from sdf_nmpc_tpu_torch.solver import init_state, make_rti_step
     from sdf_nmpc_tpu_torch.utils import accuracy
 
-    source, functions = VARIANTS[kernel]
+    functions, kernels = VARIANTS[source]
 
     def vs_f64(out, a):
         packed, pos, latent = a
@@ -1562,16 +1590,18 @@ def phase_builds(dev, card, kernel, dirs, rounds=3):
         d = [(o.double() - r).abs() for o, r in zip(out, ref)]
         return [float(d[0].max()), float(d[0].mean()), float(d[1].max()), float(d[1].mean())]
 
-    captured, run = {"ip_phase": ("ip_phase", lambda a: ip_kernel.ip_phase(*a)),
-                     "sdf_fused_x3": ("sdf", lambda a: sdf_fused.sdf_value_grad(
-                         *a, mode="f32x3"))}[kernel]
-    cfg, ocp, layout, _ = accuracy.build_setup(device=dev)
+    runs = {"ip_phase": ("ip_phase", lambda a: ip_kernel.ip_phase(*a)),
+            "sdf_fused_x3": ("sdf", lambda a: sdf_fused.sdf_value_grad(*a, mode="f32x3")),
+            **{name: (name, lambda a, _n=name: getattr(qp_kernels, _n)(*a))
+               for name in COMPOSED_KERNELS}}
+    over = DWS if source == "qp_solve.cu" else None
+    cfg, ocp, layout, _ = accuracy.build_setup(device=dev, solver_over=over)
     inputs = bench_inputs(ocp, cfg, layout, MAIN_B, SEED, dev)
     state = make_rti_step(ocp, cfg, budget="cold", with_evals=False)(
-        init_state(ocp, inputs.x0), inputs).state
+        init_state(ocp, inputs.x0, dual_warm_start=over is DWS), inputs).state
     with Capture() as cap:
         make_rti_step(ocp, cfg, budget="steady", with_evals=False)(state, inputs)
-    calls = cap.args(captured)
+    calls = {kernel: cap.args(runs[kernel][0]) for kernel in kernels}
     libs = {"package": _lib.library()}
     for i, d in enumerate(dirs):
         lib = ctypes.CDLL(build_variant(d, source, _lib.BUILD / f"variant-{os.getpid()}-{i}"))
@@ -1580,10 +1610,11 @@ def phase_builds(dev, card, kernel, dirs, rounds=3):
             getattr(lib, name).restype = ctypes.c_int
         libs[d] = lib
     saved = _lib.library
-    times = {name: [[] for _ in calls] for name in libs}
+    times = {name: {k: [[] for _ in calls[k]] for k in kernels} for name in libs}
     report = {}
-    if kernel == "sdf_fused_x3":  # the IEEE route on the same inputs, for reference
-        errs = vs_f64(sdf_fused.sdf_value_grad(*calls[0], mode="f32"), calls[0])
+    if source == "sdf_fused_x3.cu":  # the IEEE route on the same inputs, for reference
+        a = calls["sdf_fused_x3"][0]
+        errs = vs_f64(sdf_fused.sdf_value_grad(*a, mode="f32"), a)
         report["sdf_fused (f32 route)"] = {"f64_err": [errs]}
         log(f"sdf_fused (f32 route): against f64, value max/mean {errs[0]:.3e}/{errs[1]:.3e}, "
             f"gradient {errs[2]:.3e}/{errs[3]:.3e}")
@@ -1591,35 +1622,52 @@ def phase_builds(dev, card, kernel, dirs, rounds=3):
         for r in range(rounds):
             for name, lib in libs.items():
                 _lib.library = lambda _l=lib: _l
-                for j, a in enumerate(calls):
-                    times[name][j].append(cuda_ms(lambda: run(a), reps=5))
-        want = []
+                for kernel in kernels:
+                    run = runs[kernel][1]
+                    for j, a in enumerate(calls[kernel]):
+                        times[name][kernel][j].append(cuda_ms(lambda: run(a), reps=5))
+        want = {}
         for name, lib in libs.items():
             _lib.library = lambda _l=lib: _l
-            outs = [run(a) for a in calls]
-            if name == "package":
-                want = outs
-            diff = max(max_abs(g, w) for o, wo in zip(outs, want) for g, w in zip(o, wo))
-            same = all(torch.equal(g, w) for o, wo in zip(outs, want) for g, w in zip(o, wo))
-            report[name] = {"launch_ms": times[name], "bitwise_equal": same,
-                            "max_abs_diff": diff}
-            if kernel == "sdf_fused_x3":  # value and gradient against the f64 plain version
-                errs = [vs_f64(o, a) for o, a in zip(outs, calls)]
-                report[name]["f64_err"] = errs
-                log(f"{kernel} build {name}: against f64, value max/mean "
-                    f"{errs[0][0]:.3e}/{errs[0][1]:.3e}, gradient {errs[0][2]:.3e}/{errs[0][3]:.3e}")
-            if kernel == "ip_phase":
-                geo = [ip_kernel.ip_phase_geometry(a[0][0].shape[-1], a[0][1].shape[1], a[2])
-                       for a in calls]
-                report[name].update(launch_k_s=[a[2] for a in calls], geometry=geo)
-            for j, ms in enumerate(times[name]):
-                log(f"{kernel} build {name}: launch {j}: "
-                    f"{', '.join(f'{t:.4f}' for t in ms)} ms over {rounds} rounds")
-            log(f"{kernel} build {name}: outputs {'equal to' if same else 'differ from'} the "
-                f"package's build bit for bit (max diff {diff:.3e}); card {card}")
+            report[name] = {}
+            for kernel in kernels:
+                run = runs[kernel][1]
+                outs = [_flat(run(a)) for a in calls[kernel]]
+                if name == "package":
+                    want[kernel] = outs
+                pairs = [(g, w) for o, wo in zip(outs, want[kernel]) for g, w in zip(o, wo)]
+                diff = max(max_abs(g, w) for g, w in pairs)
+                same = all(torch.equal(g, w) for g, w in pairs)
+                # per output (QP_OUTPUTS' names for kernels 5-8): equal on every launch?
+                names = QP_OUTPUTS.get(kernel, tuple(range(len(outs[0]))))
+                per_out = {str(o): all(torch.equal(out[i], wo[i])
+                                       for out, wo in zip(outs, want[kernel]))
+                           for i, o in enumerate(names)}
+                rep = report[name][kernel] = {"launch_ms": times[name][kernel],
+                                              "bitwise_equal": same, "max_abs_diff": diff,
+                                              "bitwise_equal_by_output": per_out}
+                if kernel == "sdf_fused_x3":  # value and gradient against the f64 plain version
+                    errs = [vs_f64(o, a) for o, a in zip(outs, calls[kernel])]
+                    rep["f64_err"] = errs
+                    log(f"{kernel} build {name}: against f64, value max/mean "
+                        f"{errs[0][0]:.3e}/{errs[0][1]:.3e}, gradient "
+                        f"{errs[0][2]:.3e}/{errs[0][3]:.3e}")
+                if kernel == "ip_phase":
+                    rep.update(launch_k_s=[a[2] for a in calls[kernel]],
+                               geometry=[ip_kernel.ip_phase_geometry(
+                                   a[0][0].shape[-1], a[0][1].shape[1], a[2])
+                                   for a in calls[kernel]])
+                per_round = [sum(ms[r] for ms in times[name][kernel]) for r in range(rounds)]
+                for j, ms in enumerate(times[name][kernel]):
+                    log(f"{kernel} build {name}: launch {j}: "
+                        f"{', '.join(f'{t:.4f}' for t in ms)} ms over {rounds} rounds")
+                log(f"{kernel} build {name}: {len(calls[kernel])} launches, "
+                    f"{', '.join(f'{t:.4f}' for t in per_round)} ms per step over {rounds} "
+                    f"rounds; outputs {'equal to' if same else 'differ from'} the package's "
+                    f"build bit for bit (max diff {diff:.3e}; by output {per_out}); card {card}")
     finally:
         _lib.library = saved
-    log(json.dumps({f"{kernel}_builds": report}))
+    log(json.dumps({f"{source.split('.')[0]}_builds": report}))
 
 
 def main(argv=None) -> int:
@@ -1630,6 +1678,9 @@ def main(argv=None) -> int:
     ap.add_argument("--sdf-builds", nargs="+", metavar="DIR",
                     help="time kernel 2's f32x3 route built from each DIR against the "
                          "package's build, then stop")
+    ap.add_argument("--qp-builds", nargs="+", metavar="DIR",
+                    help="time kernels 5-8 built from each DIR's qp_solve.cu against the "
+                         "package's build, then stop")
     ap.add_argument("--composed", action="store_true",
                     help="run only the composed main path and Nmpc, then stop")
     args = ap.parse_args(argv)
@@ -1638,10 +1689,11 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     phase_build()
-    if args.ip_builds or args.sdf_builds:
-        phase_builds(dev, card, "ip_phase" if args.ip_builds else "sdf_fused_x3",
-                     args.ip_builds or args.sdf_builds)
-        return 0
+    for source, dirs in (("ip_phase.cu", args.ip_builds), ("sdf_fused_x3.cu", args.sdf_builds),
+                         ("qp_solve.cu", args.qp_builds)):
+        if dirs:
+            phase_builds(dev, card, source, dirs)
+            return 0
     if args.composed:
         _, t_step, steady, state, inputs = phase_main_path(
             dev, card, over=DWS, per_step=composed_per_step, label="composed path")

@@ -54,7 +54,9 @@ _SIGNATURES = {
     "factor_solve_geometry": [_I] * 2 + [_P] * 3,
     "solve_launch": [_P] * 3 + [_I] * 3 + [_P],
     "stiff_factor_solve_launch": [_P] * 8 + [_I] * 4 + [_P],
+    "stiff_factor_solve_geometry": [_I] * 3 + [_P] * 3,
     "stiff_resolve_launch": [_P] * 6 + [_I] * 4 + [_P],
+    "stiff_resolve_geometry": [_I] * 3 + [_P] * 3,
 }
 
 

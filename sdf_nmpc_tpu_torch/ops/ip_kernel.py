@@ -323,7 +323,8 @@ def _ip_phase_cuda(data, state, k_s, n_iters, it0, consts, n_tail=0):
     if k_s % 8 != 0 or k_s > nc:
         raise NotImplementedError(
             f"ip_phase kernel needs k_stiff % 8 == 0 and k_stiff <= nc, got k={k_s}, nc={nc} "
-            "(the composed QP path is queued in ROADMAP.md)")
+            "(`dual_warm_start`, an unaligned `qp_stiff_k` or `chol_impl: pallas` take the "
+            "composed QP path)")
     if nz > 256 or nc > 256:
         raise ValueError(f"ip_phase kernel takes nz, nc <= 256, got {nz}, {nc}")
     _lib.require_cuda_f32("ip_phase", *data, *state)

@@ -19,12 +19,12 @@ primals (:447-452, :494-496, :516-532, :568-572); the TPU kernels' lanes
 layout and their padding to 128 scenarios have no counterpart here.
 
 On CUDA tensors each wrapper launches its kernel of ``csrc/qp_solve.cu``
-(f32, else it raises; kernel 5 on ``csrc/ip_dense.cuh``'s blocked Cholesky
-and warp-level solves, kernel 6 on its warp-level solves, kernels 7 and 8 on
-``csrc/qp_device.cuh``); on CPU tensors it runs its plain version (f32 or
-f64), ``torch.linalg.cholesky`` and ``torch.cholesky_solve``.  A failed
-factorization gives NaN in the plain version, as ``jnp.linalg.cholesky``
-does; the kernels clamp the pivot, as the TPU kernels do.
+(f32, else it raises; all four on ``csrc/ip_dense.cuh``'s blocked Cholesky,
+warp-level solves and warp-level Woodbury helpers); on CPU tensors it runs
+its plain version (f32 or f64), ``torch.linalg.cholesky`` and
+``torch.cholesky_solve``.  A failed factorization gives NaN in the plain
+version, as ``jnp.linalg.cholesky`` does; the kernels clamp the pivot, as
+the TPU kernels do.
 """
 
 from __future__ import annotations
@@ -99,13 +99,27 @@ def _factor_solve_cuda(M, RHS):
     return X, L
 
 
+def _geometry(name, *sizes) -> dict:
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    err = getattr(_lib.library(), name)(*sizes, *[ctypes.byref(v) for v in vals])
+    _lib.check(err, name)
+    return dict(zip(("threads", "smem_bytes", "blocks_per_sm"), (v.value for v in vals)))
+
+
 def factor_solve_geometry(n, r) -> dict:
     """Kernel 5's launch at (n, r) on the current card: threads per block,
     dynamic shared bytes per block, resident blocks per SM."""
-    vals = [ctypes.c_int(0) for _ in range(3)]
-    err = _lib.library().factor_solve_geometry(n, r, *[ctypes.byref(v) for v in vals])
-    _lib.check(err, "factor_solve_geometry")
-    return dict(zip(("threads", "smem_bytes", "blocks_per_sm"), (v.value for v in vals)))
+    return _geometry("factor_solve_geometry", n, r)
+
+
+def stiff_factor_solve_geometry(n, r, k) -> dict:
+    """Kernel 7's launch at (n, r, k), as factor_solve_geometry."""
+    return _geometry("stiff_factor_solve_geometry", n, r, k)
+
+
+def stiff_resolve_geometry(n, r, k) -> dict:
+    """Kernel 8's launch at (n, r, k), as factor_solve_geometry."""
+    return _geometry("stiff_resolve_geometry", n, r, k)
 
 
 def _solve_cuda(L, RHS):

@@ -462,3 +462,63 @@ def test_factor_solve_and_solve_kernel_shapes(cuda_device, n, r):
         bk, bp = (float(_backward_error(A, v, b).max()) for v in (x, xp))
         print(f"{label} n={n} r={r}: backward error kernel {bk:.2e}, plain {bp:.2e}")
         assert bk <= 10 * bp + 1e-6, label
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [44, 80, 128])
+@pytest.mark.parametrize("r", [1, 3])
+@pytest.mark.parametrize("k", [8, 16])
+def test_stiff_factor_solve_and_resolve_kernel_shapes(cuda_device, n, r, k):
+    """Kernel 7 (blocked Cholesky, the r + k rows in warp-level solves, T and
+    the Woodbury correction in one warp) and kernel 8 (warp-level solves and
+    corrections) at n not a multiple of the 8-column panel (44), the main
+    size (80) and above the 128 threads of a block (128), with 1 and 3
+    right-hand sides and k = 8 and 16 stiff rows: X and the re-solve within
+    2e-3 of their largest entries of the plain version, Xs 1e-4, L 1e-5, Lt
+    1e-4 (test_stiff_factor_solve_and_resolve_kernels_match_plain); L and Lt
+    zero above the diagonal; the backward error of each X against
+    A + Cs' diag(1/ds_inv) Cs, and against the same matrix with T's jitter
+    in ds_inv (the system both versions solve exactly, chip_smoke.py's
+    system_matrix), at most 10 times the plain version's plus 1e-6; the
+    launch geometry of both kernels."""
+    from sdf_nmpc_tpu_torch.ops.qp_kernels import (
+        stiff_factor_solve,
+        stiff_factor_solve_geometry,
+        stiff_factor_solve_plain,
+        stiff_resolve,
+        stiff_resolve_geometry,
+        stiff_resolve_plain,
+    )
+
+    rng = np.random.default_rng([n, r, k, 7])
+    G = rng.normal(size=(200, n, n))
+    A = t32(np.einsum("bij,bkj->bik", G, G) + 10 * np.eye(n)).to(cuda_device)
+    RHS, R2 = (t32(rng.normal(size=(200, r, n))).to(cuda_device) for _ in range(2))
+    Cs = t32(rng.normal(size=(200, k, n))).to(cuda_device)
+    dsi = t32(1.0 / 10.0 ** rng.uniform(2, 6, size=(200, k))).to(cuda_device)
+    n7, n8 = _count("stiff_factor_solve"), _count("stiff_resolve")
+    X, (L, Xs, Lt) = stiff_factor_solve(A, RHS, Cs, dsi)
+    X2 = stiff_resolve(L, Xs, Lt, Cs, R2)
+    assert (_count("stiff_factor_solve"), _count("stiff_resolve")) == (n7 + 1, n8 + 1)
+    Xp, (Lp, Xsp, Ltp) = stiff_factor_solve_plain(A, RHS, Cs, dsi)
+    X2p = stiff_resolve_plain(Lp, Xsp, Ltp, Cs, R2)
+    assert _rel(X, Xp) < 2e-3 and _rel(Xs, Xsp) < 1e-4
+    assert _rel(L, Lp) < 1e-5 and _rel(Lt, Ltp) < 1e-4 and _rel(X2, X2p) < 2e-3
+    assert bool((torch.triu(L, 1) == 0).all()) and bool((torch.triu(Lt, 1) == 0).all())
+    A64, C64, d64 = A.double(), Cs.double(), dsi.double()
+    T_ii = (C64 * torch.linalg.solve(A64, C64.transpose(1, 2)).transpose(1, 2)).sum(-1) + d64
+    jittered = d64 + 10 * torch.finfo(torch.float32).eps * (T_ii.abs() + 1e-30)
+    for label, s in (("ds_inv", d64), ("ds_inv with T's jitter", jittered)):
+        M = A64 + C64.transpose(1, 2) @ (C64 / s[..., None])
+        for name, x, xp, b in (("stiff_factor_solve", X, Xp, RHS), ("stiff_resolve", X2, X2p, R2)):
+            bk, bp = (float(_backward_error(M, v, b).max()) for v in (x, xp))
+            print(f"{name} n={n} r={r} k={k}, {label}: backward error kernel {bk:.2e}, "
+                  f"plain {bp:.2e}")
+            assert bk <= 10 * bp + 1e-6, (name, label)
+    ld = n | 1
+    geo7, geo8 = stiff_factor_solve_geometry(n, r, k), stiff_resolve_geometry(n, r, k)
+    assert geo7["threads"] == geo8["threads"] == 128
+    assert geo7["smem_bytes"] == 4 * (ld * (n + r + k) + max(4 * 72, k * (k + 2 * r)))
+    assert geo8["smem_bytes"] == 4 * (ld * (n + r + 2 * k) + k * (k + 8))
+    assert geo7["blocks_per_sm"] >= 1 and geo8["blocks_per_sm"] >= 1
+    print(f"n={n} r={r} k={k}: kernel 7 {geo7}, kernel 8 {geo8}")
