@@ -42,9 +42,10 @@ failure raises and exits non-zero before the result line:
 7. where the time goes on it (torch.profiler busy share) and per-kernel
    numbers for kernels 1-4 on the inputs a steady step gives them, kernel 2
    by both routes (the f32x3 route's bound at the TF32 tensor-core peak,
-   three passes, and its launch geometry); for kernel 4 also each launch's
-   time (warm phase, stiff phase), its launch geometry (threads, shared
-   bytes, resident blocks per SM);
+   three passes, and its launch geometry); for kernels 1 and 3 their launch
+   geometry (threads, shared bytes, resident blocks per SM) and ptxas
+   registers beside their ms; for kernel 4 also each launch's time (warm
+   phase, stiff phase) and its launch geometry;
 8. composed main path: the same at B=8192 with dual_warm_start (one cold
    step then 20 chained steady steps), its busy share, and per-kernel
    numbers for kernels 5-8, the library calls beside kernels 5 and 6, the
@@ -67,18 +68,21 @@ failure raises and exits non-zero before the result line:
    props also with sdf_fused_dtype f32, so that its short tick stands
    under both kernel-2 routes;
 13. main path, per family: as phase 6 at B=8192, its busy share, and
-   kernel 9's (or 1's) time, bound and plain time on a steady step's
-   inputs, beside the time of the torch.func residual rows (kernel 9 only);
+   kernel 9's (or 1's) and kernel 3's time, bound and plain time on a
+   steady step's inputs (kernels 1 and 3 with their geometry and ptxas
+   registers), beside the time of the torch.func residual rows (kernel 9
+   only);
 14. the ``Nmpc`` controller at B=1 on props, default settings, 15 ticks:
    promotion, no failure, clipped finite ``get_cmd_props``, kernel 9
    launched and kernel 1 not.
 
 The last lines are the ``kernels`` JSON (all nine kernels, kernel 2 as one
 row per route, each with its per-launch times ``launch_ms``; the rows of
-kernels 1 and 9 carry each model's numbers under ``per_model``, and at top
-level att's and props'; kernel 4's row ``launch_k_s`` and ``geometry``,
-kernel 2's f32x3 row and the rows of kernels 5, 7 and 8 their
-``geometry``; the f32 row's ``launches`` come from the f32 run of phase 6),
+kernels 1, 3 and 9 carry each model's numbers under ``per_model``, and at
+top level att's (props' for kernel 9); kernel 4's row ``launch_k_s`` and
+``geometry``, kernel 2's f32x3 row and the rows of kernels 1, 3, 5, 7 and
+8 their ``geometry``; the f32 row's ``launches`` come from the f32 run of
+phase 6),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
 Options that run a part alone, to compare source trees on one card (they
@@ -87,12 +91,16 @@ print no result line):
     python3 chip_smoke.py --ip-builds DIR [DIR ...]
     python3 chip_smoke.py --sdf-builds DIR [DIR ...]
     python3 chip_smoke.py --qp-builds DIR [DIR ...]
-        kernel 4 (kernel 2's f32x3 route, kernels 5-8) built from each DIR's
-        ip_phase.cu (sdf_fused_x3.cu, qp_solve.cu) and the headers beside it
-        against the package's build, on the launches of one steady step of
-        the fused main path (for kernels 5-8 the composed one): each launch's
-        time, the builds interleaved round by round, each build's outputs
-        against the package's, bit for bit (per output for kernels 5-8), and
+    python3 chip_smoke.py --condense-builds DIR [DIR ...]
+    python3 chip_smoke.py --lin-builds DIR [DIR ...]
+        kernel 4 (kernel 2's f32x3 route, kernels 5-8, kernel 3, kernel 1)
+        built from each DIR's ip_phase.cu (sdf_fused_x3.cu, qp_solve.cu,
+        condense.cu, lin_y_sens.cu) and the headers beside it against the
+        package's build, on the launches of one steady step of the fused main
+        path (for kernels 5-8 the composed one; kernel 3 on att's and props',
+        kernel 1 on att's, acc's and att_tau's): each launch's time, the
+        builds interleaved round by round, each build's outputs against the
+        package's and every other build's, bit for bit (per output), and
         (kernel 2) against the f64 plain version;
     python3 chip_smoke.py --composed
         phases 1, 2, 8 (without the kernel numbers) and 9: the composed main
@@ -105,6 +113,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1180,6 +1189,11 @@ def phase_kernel_numbers(counts, t_step, steady, state, inputs, card):
     # the f32x3 route does three TF32 passes on the tensor cores
     rates = {"sdf_fused_x3": (3.0, TF32_PEAKS[part])}
     rows = kernel_rows(runs, calls, counts, errs, peaks, part, rates)
+    for row in rows:  # kernels 1 and 3: launch geometry and ptxas registers beside the ms
+        if row["name"] in ("lin_y_sens", "condense"):
+            geo = lin_geometry_row if row["name"] == "lin_y_sens" else condense_geometry_row
+            row["geometry"] = geo(calls[row["name"]][0], card)
+            log(f"  {row['name']} {row['ms']:.4f} ms/step")
     x3_row = next(r for r in rows if r["name"] == "sdf_fused_x3")
     x3_row["geometry"] = sdf_fused.sdf_fused_x3_geometry()
     log(f"  sdf_fused_x3: {x3_row['geometry']['threads']} threads and "
@@ -1202,6 +1216,75 @@ def phase_kernel_numbers(counts, t_step, steady, state, inputs, card):
     log(f"kernels 1-4 (kernel 2 by its default route): {k_sum:.3f} ms of the "
         f"{t_step * 1e3:.3f} ms chained steady step ({k_sum / (t_step * 1e3):.1%}); card {card}")
     return rows
+
+
+def ptxas_report(kernel: str) -> dict:
+    """Registers and stack of each instance of ``kernel`` (its __global__
+    name) in the build's ptxas report: {instance: {"registers", "stack",
+    "spill_stores", "spill_loads"}} (_lib keeps the report beside the
+    library it built)."""
+    from sdf_nmpc_tpu_torch.ops import _lib
+
+    out, cur = {}, None
+    for line in _lib.build_info["log"].splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1) if kernel in m.group(1) else None
+            if cur:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            out[cur].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return {instance_name(kernel, k): v for k, v in out.items()}
+
+
+def instance_name(kernel: str, mangled: str) -> str:
+    """A readable name of a template instance of kernel 3 or 1 from its
+    mangled name: "nx10", "nx13", "nx<=16" (condense), "att", "acc",
+    "att_tau" (lin_y_sens)."""
+    m = re.search(r"ILi(\d+)ELb([01])E", mangled)
+    if m:
+        return f"nx{m.group(1)}" if m.group(2) == "1" else f"nx<={m.group(1)}"
+    for key, name in (("6AttTau", "att_tau"), ("3Acc", "acc"), ("3Att", "att")):
+        if key in mangled:
+            return name
+    return mangled
+
+
+def geometry_row(name: str, geo: dict, instance: str, card: str) -> dict:
+    """Kernel 3's or 1's launch geometry with the ptxas registers of the
+    instance that ran, printed."""
+    regs = ptxas_report(f"{name}_kernel").get(instance, {})
+    log(f"  {name} ({instance}): {geo['threads']} threads and {geo['smem_bytes']} B of shared "
+        f"memory per block, {geo['blocks_per_sm']} blocks per SM; ptxas "
+        f"{regs.get('registers', 'n/a')} registers, {regs.get('stack', 'n/a')} B stack, "
+        f"{regs.get('spill_stores', 'n/a')} B spill stores; card {card}")
+    return {**geo, "instance": instance, **regs}
+
+
+def condense_geometry_row(args, card) -> dict:
+    from sdf_nmpc_tpu_torch.ops import condense_kernel
+
+    A, Bm, _, _, Jyx, _, _, Jhx = args[:8]
+    N, nx, nu, ny, nh = A.shape[1], A.shape[2], Bm.shape[-1], Jyx.shape[2], Jhx.shape[2]
+    instance = f"nx{nx}" if nx in (10, 13) else "nx<=16"  # csrc/condense.cu's pick()
+    return geometry_row("condense", condense_kernel.condense_geometry(N, nx, nu, ny, nh),
+                        instance, card)
+
+
+def lin_geometry_row(args, card) -> dict:
+    from sdf_nmpc_tpu_torch.ops import lin_kernels
+
+    instance = ("att", "acc", "att_tau")[args[0].kernel_model[1]]  # csrc/lin_y_sens.cu's ids
+    return geometry_row("lin_y_sens", lin_kernels.lin_y_sens_geometry(args[0]), instance, card)
 
 
 def kernel_rows(runs, calls, counts, errs, peaks, part, rates=None):
@@ -1463,13 +1546,14 @@ def phase_family_accuracy(dev, model, over=None, label=None) -> dict:
 
 
 def phase_family_numbers(model, counts, t_step, steady, state, inputs, card):
-    """Kernel 9's (or 1's) row on the inputs one steady step of the family
-    gives it at B=MAIN_B (held against its plain version there too), and,
-    for kernel 9, the time of the torch.func residual rows the step adds
-    around it."""
+    """Kernel 9's (or 1's) row and kernel 3's on the inputs one steady step
+    of the family gives them at B=MAIN_B (held against their plain versions
+    there too), kernel 1's and 3's with their launch geometry, and, for
+    kernel 9, the time of the torch.func residual rows the step adds around
+    it."""
     from torch.func import jacfwd, vmap
 
-    from sdf_nmpc_tpu_torch.ops import lin_kernels
+    from sdf_nmpc_tpu_torch.ops import condense_kernel, lin_kernels
 
     with Capture() as cap:
         steady(state, inputs)
@@ -1482,11 +1566,19 @@ def phase_family_numbers(model, counts, t_step, steady, state, inputs, card):
         name = "lin_y_sens"
         runs = {name: (lin_kernels.lin_y_sens,
                        lambda a: lin_kernels.lin_y_sens_plain(a[0], *a[2:]), lin_cost, None)}
-    calls = {name: cap.args(name)}
+    runs["condense"] = (condense_kernel.condense, lambda a: condense_kernel.condense_plain(*a),
+                        condense_cost, None)
+    calls = {name: cap.args(name), "condense": cap.args("condense")}
     log(f"kernel numbers, {model}: inputs of one steady step at B={MAIN_B}")
     check = check_erk4 if name == "erk4_sens" else check_lin
-    errs = {name: max(check(a) for a in calls[name])}
-    (row,) = kernel_rows(runs, calls, counts, errs, peaks, part)
+    errs = {name: max(check(a) for a in calls[name]),
+            "condense": max(check_condense(a) for a in calls["condense"])}
+    row, cond_row = kernel_rows(runs, calls, counts, errs, peaks, part)
+    cond_row["geometry"] = condense_geometry_row(calls["condense"][0], card)
+    log(f"  condense {cond_row['ms']:.4f} ms/step")
+    if name == "lin_y_sens":
+        row["geometry"] = lin_geometry_row(calls[name][0], card)
+        log(f"  lin_y_sens {row['ms']:.4f} ms/step")
     if name == "erk4_sens":
         spec, X, U, _ = calls[name][0]
         ocp_y = spec.y
@@ -1500,16 +1592,16 @@ def phase_family_numbers(model, counts, t_step, steady, state, inputs, card):
         row["residual_rows_ms"] = glue
         log(f"  {model}: residual rows and their Jacobians by torch.func (vmap of jacfwd of y, "
             f"M={X.shape[0]}): {glue:.3f} ms per step")
-    log(f"{model}: {name} {row['ms']:.4f} ms of the {t_step * 1e3:.3f} ms chained steady step; "
-        f"card {card}")
-    return row
+    log(f"{model}: {name} {row['ms']:.4f} ms and condense {cond_row['ms']:.4f} ms of the "
+        f"{t_step * 1e3:.3f} ms chained steady step; card {card}")
+    return row, cond_row
 
 
 def kernel_row_per_model(rows: dict, top: str) -> dict:
     """One ``kernels`` row of a kernel run by several models: ``top``'s
     numbers at top level, every model's under ``per_model``."""
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "residual_rows_ms")
+            "residual_rows_ms", "geometry")
     row = {k: v for k, v in rows[top].items() if k != "residual_rows_ms"}
     row["per_model"] = {m: {k: r[k] for k in keys if k in r} for m, r in rows.items()}
     return row
@@ -1518,7 +1610,7 @@ def kernel_row_per_model(rows: dict, top: str) -> dict:
 def phase_families(dev, card):
     """Phases 11-13 for each family; returns {kernel: {model: row}} and the
     accuracy report."""
-    per_kernel = {"lin_y_sens": {}, "erk4_sens": {}}
+    per_kernel = {"lin_y_sens": {}, "erk4_sens": {}, "condense": {}}
     report = {}
     for model in ERK4_FAMILIES + LIN_FAMILIES:
         phase_family_checks(dev, model)
@@ -1530,20 +1622,26 @@ def phase_families(dev, card):
             dev, card, per_step=family_per_step(model), label=f"{model} fused path",
             model=model)
         phase_profile(steady, state, inputs, t_step, card, label=f"{model} fused path")
-        row = phase_family_numbers(model, counts, t_step, steady, state, inputs, card)
+        row, cond_row = phase_family_numbers(model, counts, t_step, steady, state, inputs, card)
         per_kernel[row["name"]][model] = row
+        per_kernel["condense"][model] = cond_row
         del steady, state, inputs
     log(json.dumps({"family_accuracy": report}))
     return per_kernel
 
 
-# source -> (its C functions, the kernels timed) for --ip-builds, --sdf-builds
-# and --qp-builds
-VARIANTS = {"ip_phase.cu": (("ip_phase_launch", "ip_phase_geometry"), ("ip_phase",)),
+# source -> (its C functions, the kernels timed, the models whose steady
+# step gives the launches) for --ip-builds, --sdf-builds, --qp-builds,
+# --condense-builds and --lin-builds; a function a tree lacks is not bound
+VARIANTS = {"ip_phase.cu": (("ip_phase_launch", "ip_phase_geometry"), ("ip_phase",), ("att",)),
             "sdf_fused_x3.cu": (("sdf_fused_x3_launch", "sdf_fused_x3_geometry"),
-                                ("sdf_fused_x3",)),
+                                ("sdf_fused_x3",), ("att",)),
             "qp_solve.cu": (("factor_solve_launch", "solve_launch", "stiff_factor_solve_launch",
-                             "stiff_resolve_launch"), tuple(COMPOSED_KERNELS))}
+                             "stiff_resolve_launch"), tuple(COMPOSED_KERNELS), ("att",)),
+            "condense.cu": (("condense_launch", "condense_geometry"), ("condense",),
+                            ("att", "props")),
+            "lin_y_sens.cu": (("lin_y_sens_launch", "lin_y_sens_geometry"), ("lin_y_sens",),
+                              ("att",) + LIN_FAMILIES)}
 
 
 def build_variant(src_dir: str, source: str, out_dir) -> str:
@@ -1566,21 +1664,29 @@ def build_variant(src_dir: str, source: str, out_dir) -> str:
 
 
 def phase_builds(dev, card, source, dirs, rounds=3):
-    """The kernels of ``source`` (kernel 4, kernel 2's f32x3 route, or
-    kernels 5-8) built from other source trees against the package's build,
-    on their launches of one steady step of the main path that runs them
-    (B=MAIN_B; the composed path for kernels 5-8): each launch's time, the
-    builds interleaved round by round, whether each build's outputs equal
-    the package's bit for bit, and for kernel 2 how far its value and
-    gradient lie from the f64 plain version.  A tree must keep the package's
-    C interface and host-side layout."""
+    """The kernels of ``source`` (kernel 4, kernel 2's f32x3 route, kernels
+    5-8, kernel 3 or kernel 1) built from other source trees against the
+    package's build, on their launches of one steady step of the main path
+    that runs them (B=MAIN_B; the composed path for kernels 5-8; kernel 3 on
+    att's and props' fused paths, kernel 1 on att's, acc's and att_tau's):
+    each launch's time, the builds interleaved round by round, whether each
+    build's outputs equal the package's bit for bit, and for kernel 2 how far
+    its value and gradient lie from the f64 plain version.  A tree must keep
+    the package's C interface and host-side layout."""
     import ctypes
 
-    from sdf_nmpc_tpu_torch.ops import _lib, ip_kernel, qp_kernels, sdf_fused
+    from sdf_nmpc_tpu_torch.ops import (
+        _lib,
+        condense_kernel,
+        ip_kernel,
+        lin_kernels,
+        qp_kernels,
+        sdf_fused,
+    )
     from sdf_nmpc_tpu_torch.solver import init_state, make_rti_step
     from sdf_nmpc_tpu_torch.utils import accuracy
 
-    functions, kernels = VARIANTS[source]
+    functions, kernels, models = VARIANTS[source]
 
     def vs_f64(out, a):
         packed, pos, latent = a
@@ -1593,21 +1699,31 @@ def phase_builds(dev, card, source, dirs, rounds=3):
     runs = {"ip_phase": ("ip_phase", lambda a: ip_kernel.ip_phase(*a)),
             "sdf_fused_x3": ("sdf", lambda a: sdf_fused.sdf_value_grad(*a, mode="f32x3")),
             **{name: (name, lambda a, _n=name: getattr(qp_kernels, _n)(*a))
-               for name in COMPOSED_KERNELS}}
+               for name in COMPOSED_KERNELS},
+            "condense": ("condense", lambda a: condense_kernel.condense(*a)),
+            "lin_y_sens": ("lin_y_sens", lambda a: lin_kernels.lin_y_sens(*a))}
     over = DWS if source == "qp_solve.cu" else None
-    cfg, ocp, layout, _ = accuracy.build_setup(device=dev, solver_over=over)
-    inputs = bench_inputs(ocp, cfg, layout, MAIN_B, SEED, dev)
-    state = make_rti_step(ocp, cfg, budget="cold", with_evals=False)(
-        init_state(ocp, inputs.x0, dual_warm_start=over is DWS), inputs).state
-    with Capture() as cap:
-        make_rti_step(ocp, cfg, budget="steady", with_evals=False)(state, inputs)
-    calls = {kernel: cap.args(runs[kernel][0]) for kernel in kernels}
+    calls = {kernel: [] for kernel in kernels}
+    for model in models:
+        cfg, ocp, layout, _ = accuracy.build_setup(
+            device=dev, solver_over=over, model=None if model == "att" else model)
+        inputs = bench_inputs(ocp, cfg, layout, MAIN_B, SEED, dev)
+        state = make_rti_step(ocp, cfg, budget="cold", with_evals=False)(
+            init_state(ocp, inputs.x0, dual_warm_start=over is DWS), inputs).state
+        with Capture() as cap:
+            make_rti_step(ocp, cfg, budget="steady", with_evals=False)(state, inputs)
+        for kernel in kernels:
+            calls[kernel] += cap.args(runs[kernel][0])
+        del inputs, state, cap
+    log(f"{source} builds: the launches of one steady step of {', '.join(models)} at "
+        f"B={MAIN_B}")
     libs = {"package": _lib.library()}
     for i, d in enumerate(dirs):
         lib = ctypes.CDLL(build_variant(d, source, _lib.BUILD / f"variant-{os.getpid()}-{i}"))
         for name in functions:
-            getattr(lib, name).argtypes = _lib._SIGNATURES[name]
-            getattr(lib, name).restype = ctypes.c_int
+            fn = getattr(lib, name, None)
+            if fn is not None:
+                fn.argtypes, fn.restype = _lib._SIGNATURES[name], ctypes.c_int
         libs[d] = lib
     saved = _lib.library
     times = {name: {k: [[] for _ in calls[k]] for k in kernels} for name in libs}
@@ -1626,13 +1742,14 @@ def phase_builds(dev, card, source, dirs, rounds=3):
                     run = runs[kernel][1]
                     for j, a in enumerate(calls[kernel]):
                         times[name][kernel][j].append(cuda_ms(lambda: run(a), reps=5))
-        want = {}
+        want, every = {}, {}  # the package's outputs; every build's
         for name, lib in libs.items():
             _lib.library = lambda _l=lib: _l
             report[name] = {}
             for kernel in kernels:
                 run = runs[kernel][1]
                 outs = [_flat(run(a)) for a in calls[kernel]]
+                every[name, kernel] = outs
                 if name == "package":
                     want[kernel] = outs
                 pairs = [(g, w) for o, wo in zip(outs, want[kernel]) for g, w in zip(o, wo)]
@@ -1657,14 +1774,27 @@ def phase_builds(dev, card, source, dirs, rounds=3):
                                geometry=[ip_kernel.ip_phase_geometry(
                                    a[0][0].shape[-1], a[0][1].shape[1], a[2])
                                    for a in calls[kernel]])
+                if kernel in ("condense", "lin_y_sens") and hasattr(lib, f"{kernel}_geometry"):
+                    geo = (lambda a: condense_kernel.condense_geometry(
+                        a[0].shape[1], a[0].shape[2], a[1].shape[-1], a[4].shape[2],
+                        a[7].shape[2])) if kernel == "condense" else (
+                        lambda a: lin_kernels.lin_y_sens_geometry(a[0]))
+                    rep["geometry"] = [geo(a) for a in calls[kernel]]
+                    log(f"{kernel} build {name}: geometry per launch {rep['geometry']}")
                 per_round = [sum(ms[r] for ms in times[name][kernel]) for r in range(rounds)]
                 for j, ms in enumerate(times[name][kernel]):
-                    log(f"{kernel} build {name}: launch {j}: "
+                    at = models[j] if len(calls[kernel]) == len(models) else j
+                    log(f"{kernel} build {name}: launch {at}: "
                         f"{', '.join(f'{t:.4f}' for t in ms)} ms over {rounds} rounds")
                 log(f"{kernel} build {name}: {len(calls[kernel])} launches, "
                     f"{', '.join(f'{t:.4f}' for t in per_round)} ms per step over {rounds} "
                     f"rounds; outputs {'equal to' if same else 'differ from'} the package's "
                     f"build bit for bit (max diff {diff:.3e}; by output {per_out}); card {card}")
+        for (name, kernel), outs in every.items():  # which other builds give the same bits
+            same = [other for (other, k), o in every.items() if k == kernel and other != name
+                    and all(torch.equal(g, w) for x, y in zip(outs, o) for g, w in zip(x, y))]
+            report[name][kernel]["bitwise_equal_to"] = same
+            log(f"{kernel} build {name}: outputs equal bit for bit to the builds {same}")
     finally:
         _lib.library = saved
     log(json.dumps({f"{source.split('.')[0]}_builds": report}))
@@ -1681,6 +1811,12 @@ def main(argv=None) -> int:
     ap.add_argument("--qp-builds", nargs="+", metavar="DIR",
                     help="time kernels 5-8 built from each DIR's qp_solve.cu against the "
                          "package's build, then stop")
+    ap.add_argument("--condense-builds", nargs="+", metavar="DIR",
+                    help="time kernel 3 built from each DIR's condense.cu against the "
+                         "package's build, then stop")
+    ap.add_argument("--lin-builds", nargs="+", metavar="DIR",
+                    help="time kernel 1 built from each DIR's lin_y_sens.cu against the "
+                         "package's build, then stop")
     ap.add_argument("--composed", action="store_true",
                     help="run only the composed main path and Nmpc, then stop")
     args = ap.parse_args(argv)
@@ -1690,7 +1826,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     phase_build()
     for source, dirs in (("ip_phase.cu", args.ip_builds), ("sdf_fused_x3.cu", args.sdf_builds),
-                         ("qp_solve.cu", args.qp_builds)):
+                         ("qp_solve.cu", args.qp_builds), ("condense.cu", args.condense_builds),
+                         ("lin_y_sens.cu", args.lin_builds)):
         if dirs:
             phase_builds(dev, card, source, dirs)
             return 0
@@ -1721,8 +1858,9 @@ def main(argv=None) -> int:
     phase_batched(dev, card)
     per_kernel = phase_families(dev, card)
     phase_nmpc(dev, card, ticks=NMPC_TICKS_PROPS, model="props", over=None)
-    lin_rows = {"att": rows[0], **per_kernel["lin_y_sens"]}
-    rows[0] = kernel_row_per_model(lin_rows, "att")
+    for i, row in enumerate(rows):  # kernels 1 and 3: att's numbers, every model's beside
+        if row["name"] in ("lin_y_sens", "condense"):
+            rows[i] = kernel_row_per_model({"att": row, **per_kernel[row["name"]]}, "att")
     rows.append(kernel_row_per_model(per_kernel["erk4_sens"], "props"))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -34,7 +34,8 @@ launch_counts = {"lin_y_sens": 0, "erk4_sens": 0, "sdf_fused": 0, "sdf_fused_x3"
                  "condense": 0, "ip_phase": 0, "factor_solve": 0, "solve": 0,
                  "stiff_factor_solve": 0, "stiff_resolve": 0}
 
-# what the last build printed (ptxas register / spill report)
+# what the build of the loaded library printed (ptxas register / spill
+# report), kept beside it as <library>.log
 build_info = {"log": "", "path": None}
 
 _P = ctypes.c_void_p
@@ -43,11 +44,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # (..., M, model id, host pointer to the ModelConsts floats, their count, stream)
     "lin_y_sens_launch": [_P] * 11 + [_I, _I, _P, _I, _P],
+    "lin_y_sens_geometry": [_I] + [_P] * 3,
     "erk4_sens_launch": [_P] * 6 + [_I, _I, _P, _I, _P],
     "sdf_fused_launch": [_P] * 15 + [_I] * 5 + [_F, _P],
     "sdf_fused_x3_launch": [_P] * 9 + [_I] * 6 + [_F, _P],
     "sdf_fused_x3_geometry": [_P] * 3,
     "condense_launch": [_P] * 18 + [_I] * 6 + [_P],
+    "condense_geometry": [_I] * 5 + [_P] * 3,
     "ip_phase_launch": [_P] * 12 + [_I] * 7 + [_F] * 5 + [_P],
     "ip_phase_geometry": [_I] * 3 + [_P] * 3,
     "factor_solve_launch": [_P] * 4 + [_I] * 3 + [_P],
@@ -87,8 +90,9 @@ def _digest() -> str:
 def build() -> Path:
     """Compile the kernels (if the sources changed) and return the library path."""
     lib = BUILD / f"libsdf_nmpc_kernels-{_digest()}.so"
+    log = lib.with_suffix(".log")
     if lib.exists():
-        build_info["path"] = str(lib)
+        build_info.update(log=log.read_text() if log.exists() else "", path=str(lib))
         return lib
     nvcc = _nvcc()
     work = BUILD / f"tmp-{os.getpid()}"
@@ -113,9 +117,11 @@ def build() -> Path:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+    build_info.update(log="\n".join(logs), path=str(lib))
+    (work / log.name).write_text(build_info["log"])
+    os.replace(work / log.name, log)
     os.replace(tmp_lib, lib)  # atomic: concurrent builders never see half a file
     shutil.rmtree(work, ignore_errors=True)
-    build_info.update(log="\n".join(logs), path=str(lib))
     return lib
 
 
@@ -133,6 +139,16 @@ def check(err: int, name: str):
     """Raise if a launch function returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def geometry(name: str, *sizes) -> dict:
+    """What the C function ``name`` reports of a kernel's launch at ``sizes``
+    on the current card: threads per block, dynamic shared bytes per block,
+    resident blocks per SM."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    err = getattr(library(), name)(*sizes, *[ctypes.byref(v) for v in vals])
+    check(err, name)
+    return dict(zip(("threads", "smem_bytes", "blocks_per_sm"), (v.value for v in vals)))
 
 
 def stream_ptr() -> int:

@@ -13,8 +13,10 @@ with e_{k+1} = A_k e_k + d_k, E_{k+1} = A_k E_k + B_k placed in column block
 k, G_k = Jyx_k E_k (+ Jyu_k in block k), res_c = res + Jyx e, C_k = Jhx_k E_k
 (+ Jhu_k in block k), c0 = h + Jhx e.  Needs nh >= 1.
 
-On a CUDA tensor ``condense`` launches ``csrc/condense.cu``; on a CPU tensor
-it runs the plain version (the scan as a Python loop).
+On a CUDA tensor ``condense`` launches ``csrc/condense.cu`` (one block per
+scenario, each thread four columns of E in registers, one more thread for e:
+nx up to ``NX_MAX``, nz up to ``NZ_MAX``); on a CPU tensor it runs the plain
+version (the scan as a Python loop).
 """
 
 from __future__ import annotations
@@ -22,6 +24,9 @@ from __future__ import annotations
 import torch
 
 from . import _lib
+
+NX_MAX = 16  # csrc/condense.cu: E's columns in registers
+NZ_MAX = 508  # csrc/condense.cu: a thread per 4 columns and one for e, at most 128
 
 
 def _add_block(M, k, nu, blk):
@@ -55,12 +60,30 @@ def condense_plain(A, Bm, d, e0, Jyx, Jyu, res, Jhx, Jhu, h):
     return e_st, E_st, e, E, G, res_c, C, c0
 
 
+def _check_sizes(N, nx, nu, nh):
+    if nh < 1:
+        raise ValueError("condense kernel needs nh >= 1 constraint rows")
+    if nx > NX_MAX:
+        raise ValueError(f"condense kernel keeps a column of E in registers: nx <= {NX_MAX}, "
+                         f"got nx={nx}")
+    if N * nu > NZ_MAX:
+        raise ValueError(f"condense kernel takes a thread per four columns: nz = N nu <= "
+                         f"{NZ_MAX}, got nz={N * nu}")
+
+
+def condense_geometry(N, nx, nu, ny, nh) -> dict:
+    """The kernel's launch at (N, nx, nu, ny, nh) on the current card:
+    threads per block, dynamic shared bytes per block, resident blocks per
+    SM."""
+    _check_sizes(N, nx, nu, nh)
+    return _lib.geometry("condense_geometry", N, nx, nu, ny, nh)
+
+
 def _condense_cuda(A, Bm, d, e0, Jyx, Jyu, res, Jhx, Jhu, h):
     B, N, nx = d.shape
     nu, ny, nh = Bm.shape[-1], Jyx.shape[2], Jhx.shape[2]
     nz = N * nu
-    if nh < 1:
-        raise ValueError("condense kernel needs nh >= 1 constraint rows")
+    _check_sizes(N, nx, nu, nh)
     ins = (A, Bm, d, e0, Jyx, Jyu, res, Jhx, Jhu, h)
     _lib.require_cuda_f32("condense", *ins)
     shapes = ((B, N, nx, nx), (B, N, nx, nu), (B, N, nx), (B, nx), (B, N, ny, nx),

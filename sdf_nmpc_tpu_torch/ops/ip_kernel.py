@@ -350,10 +350,7 @@ def _ip_phase_cuda(data, state, k_s, n_iters, it0, consts, n_tail=0):
 def ip_phase_geometry(nz, nc, k_s) -> dict:
     """Kernel 4's launch at (nz, nc, k_s) on the current card: threads per
     block, dynamic shared bytes per block, resident blocks per SM."""
-    vals = [ctypes.c_int(0) for _ in range(3)]
-    err = _lib.library().ip_phase_geometry(nz, nc, k_s, *[ctypes.byref(v) for v in vals])
-    _lib.check(err, "ip_phase_geometry")
-    return dict(zip(("threads", "smem_bytes", "blocks_per_sm"), (v.value for v in vals)))
+    return _lib.geometry("ip_phase_geometry", nz, nc, k_s)
 
 
 def ip_phase(data, state, k_s, n_iters, it0, consts, n_tail=0):

@@ -84,6 +84,13 @@ def _lin_y_sens_cuda(model, layout, X, U, dt, P, yref):
     return out
 
 
+def lin_y_sens_geometry(model) -> dict:
+    """Kernel 1's launch for ``model``'s instantiation on the current card:
+    threads per block, dynamic shared bytes per block, resident blocks per
+    SM."""
+    return _lib.geometry("lin_y_sens_geometry", _model_id("lin_y_sens", model))
+
+
 def lin_y_sens(model, layout, X, U, dt, P, yref):
     """Kernel 1 on CUDA tensors, plain version on CPU tensors (see module doc)."""
     if X.is_cuda:

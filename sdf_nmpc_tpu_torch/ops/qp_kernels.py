@@ -29,8 +29,6 @@ the TPU kernels do.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _lib
@@ -99,27 +97,20 @@ def _factor_solve_cuda(M, RHS):
     return X, L
 
 
-def _geometry(name, *sizes) -> dict:
-    vals = [ctypes.c_int(0) for _ in range(3)]
-    err = getattr(_lib.library(), name)(*sizes, *[ctypes.byref(v) for v in vals])
-    _lib.check(err, name)
-    return dict(zip(("threads", "smem_bytes", "blocks_per_sm"), (v.value for v in vals)))
-
-
 def factor_solve_geometry(n, r) -> dict:
     """Kernel 5's launch at (n, r) on the current card: threads per block,
     dynamic shared bytes per block, resident blocks per SM."""
-    return _geometry("factor_solve_geometry", n, r)
+    return _lib.geometry("factor_solve_geometry", n, r)
 
 
 def stiff_factor_solve_geometry(n, r, k) -> dict:
     """Kernel 7's launch at (n, r, k), as factor_solve_geometry."""
-    return _geometry("stiff_factor_solve_geometry", n, r, k)
+    return _lib.geometry("stiff_factor_solve_geometry", n, r, k)
 
 
 def stiff_resolve_geometry(n, r, k) -> dict:
     """Kernel 8's launch at (n, r, k), as factor_solve_geometry."""
-    return _geometry("stiff_resolve_geometry", n, r, k)
+    return _lib.geometry("stiff_resolve_geometry", n, r, k)
 
 
 def _solve_cuda(L, RHS):

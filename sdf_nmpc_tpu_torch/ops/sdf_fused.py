@@ -32,8 +32,6 @@ the JAX kernel path and ``NeuralDF.forward`` mirrors ``module.apply``.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..nn.embeddings import PositionEmbedding
@@ -283,10 +281,7 @@ def _sdf_value_grad_x3_cuda(packed, pos, latent):
 def sdf_fused_x3_geometry() -> dict:
     """The f32x3 kernel's launch on the current card: threads per block,
     dynamic shared bytes per block, resident blocks per SM."""
-    vals = [ctypes.c_int(0) for _ in range(3)]
-    err = _lib.library().sdf_fused_x3_geometry(*[ctypes.byref(v) for v in vals])
-    _lib.check(err, "sdf_fused_x3_geometry")
-    return dict(zip(("threads", "smem_bytes", "blocks_per_sm"), (v.value for v in vals)))
+    return _lib.geometry("sdf_fused_x3_geometry")
 
 
 def sdf_value_grad(packed, pos, latent, mode="f32"):

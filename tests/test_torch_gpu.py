@@ -522,3 +522,110 @@ def test_stiff_factor_solve_and_resolve_kernel_shapes(cuda_device, n, r, k):
     assert geo8["smem_bytes"] == 4 * (ld * (n + r + 2 * k) + k * (k + 8))
     assert geo7["blocks_per_sm"] >= 1 and geo8["blocks_per_sm"] >= 1
     print(f"n={n} r={r} k={k}: kernel 7 {geo7}, kernel 8 {geo8}")
+
+
+def _condense_args(B, N, nx, nu, ny, nh, rng, device):
+    """test_condense_kernel_matches_plain's data at any shape."""
+    shapes = [(B, N, nx, nu), (B, N, nx), (B, nx), (B, N, ny, nx),
+              (B, N, ny, nu), (B, N, ny), (B, N, nh, nx), (B, N, nh, nu), (B, N, nh)]
+    A = np.eye(nx) + 0.05 * rng.normal(size=(B, N, nx, nx))
+    return [t32(a).to(device) for a in [A] + [rng.normal(size=s) for s in shapes]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nx", [10, 13])
+@pytest.mark.parametrize("ny", [11, 16])
+@pytest.mark.parametrize("nh", [1, 3])
+@pytest.mark.parametrize("N", [5, 20])
+def test_condense_kernel_shapes(cuda_device, nx, ny, nh, N):
+    """Kernel 3 (one block per scenario, one thread per four columns of E) at the
+    families' widths, 1 and 3 constraint rows, a short and the main horizon,
+    301 scenarios: every output within 1e-5 absolute and relative of the
+    plain version, or, where the plain f32 version itself strays that far,
+    as close to the plain version in f64 as the plain f32 version is, within
+    twice its distance (as test_lin_y_sens_kernel_matches_plain_families).
+    Over 20 stages E grows to magnitudes of ~10 on this data, and the
+    kernel's and cuBLAS's f32 sums part by a few 1e-5 on one entry in ~1e5.
+    Also E_k's columns beyond k nu exactly zero, and the launch geometry
+    (ceil(nz / 4) + 1 threads in whole warps, two stage buffers)."""
+    from sdf_nmpc_tpu_torch.ops.condense_kernel import condense, condense_geometry, condense_plain
+
+    nu, B = 4, 301
+    args = _condense_args(B, N, nx, nu, ny, nh, np.random.default_rng([nx, ny, nh, N]),
+                          cuda_device)
+    n0 = _count("condense")
+    got = condense(*args)
+    assert _count("condense") == n0 + 1
+    want, ref = condense_plain(*args), condense_plain(*[a.double() for a in args])
+    for i, (g, w, r) in enumerate(zip(got, want, ref)):
+        excess = float(((g.double() - w.double()).abs() - 1e-5 * w.double().abs()).max())
+        e_k, e_p = max_abs(g, r), max_abs(w, r)
+        print(f"output {i}: excess over 1e-5 rel {excess:.2e}, kernel - f64 {e_k:.2e}, "
+              f"plain f32 - f64 {e_p:.2e}")
+        assert excess <= 1e-5 or e_k <= 2 * e_p, i
+    for k in range(N):
+        assert bool((got[1][:, k, :, k * nu:] == 0).all())
+    r4 = lambda n: (n + 3) // 4 * 4
+    words = (nx + ny + nh) * r4(nx) + sum(map(r4, (nx * nu, ny * nu, nh * nu, nx, ny, nh)))
+    geo = condense_geometry(N, nx, nu, ny, nh)
+    assert geo["threads"] == ((N * nu + 3) // 4 + 32) // 32 * 32
+    assert geo["smem_bytes"] == 8 * words
+    assert geo["blocks_per_sm"] >= 4
+    print(f"N={N} nx={nx} ny={ny} nh={nh}: {geo}")
+
+
+@pytest.mark.gpu
+def test_lin_y_sens_geometry(cuda_device):
+    """Kernel 1's launch for each model: 112 threads (16 points of 7 sweeps
+    of two directions each), the 16 points' inputs and outputs in shared
+    memory."""
+    from sdf_nmpc_tpu_torch.ops.lin_kernels import lin_y_sens_geometry
+
+    for model in ("att", "acc", "att_tau"):
+        spec, _ = _family(model)
+        geo = lin_y_sens_geometry(spec)
+        assert geo["threads"] == 112 and geo["smem_bytes"] == 16 * 4 * (30 + 315), model
+        assert geo["blocks_per_sm"] >= 4, model
+        print(f"{model}: {geo}")
+
+
+@pytest.mark.gpu
+def test_nan_in_one_scenario_stays_there(cuda_device, monkeypatch):
+    """One fused att step (cold budget) on the 32 accuracy scenarios twice
+    over, once clean and once with a NaN in one scenario's A_5 (kernel 1's
+    output, before kernel 3 condenses it): that scenario reports STATUS_NAN
+    and keeps its iterate, and every other scenario's result equals the
+    clean run's bit for bit.  Kernel 3 skips E_k's zero columns, so the NaN
+    reaches e_6 and the live columns, not the zero ones; the step's status
+    must not change for that."""
+    from sdf_nmpc_tpu_torch.ops import lin_kernels
+    from sdf_nmpc_tpu_torch.solver import STATUS_NAN, STATUS_OK, init_state, make_rti_step
+    from sdf_nmpc_tpu_torch.utils import accuracy
+
+    cfg, ocp, layout, lat = accuracy.build_setup(device=cuda_device)
+    scen = accuracy.build_scenarios(cfg, ocp, layout, lat)
+    inputs = accuracy.scenario_inputs(ocp, scen, torch.float32, cuda_device, reps=2)
+    step = make_rti_step(ocp, cfg, budget="cold", with_evals=False)
+    state = init_state(ocp, inputs.x0)
+    clean = step(state, inputs)
+    bad, k = 7, 5
+    lin = lin_kernels.lin_y_sens
+
+    def poisoned(*a):
+        out = lin(*a)
+        out[1][bad * ocp.N + k, 2, 3] = float("nan")
+        return out
+
+    monkeypatch.setattr(lin_kernels, "lin_y_sens", poisoned)
+    n0 = _count("condense")
+    res = step(state, inputs)
+    assert _count("condense") == n0 + 1
+    others = torch.arange(res.status.shape[0], device=cuda_device) != bad
+    assert int(res.status[bad]) == STATUS_NAN
+    assert bool((clean.status[others] == STATUS_OK).all())
+    assert torch.equal(res.state.X[bad], state.X[bad]) and torch.equal(res.state.U[bad],
+                                                                       state.U[bad])
+    for name in ("status", "u0", "kkt_residual"):
+        assert torch.equal(getattr(res, name)[others], getattr(clean, name)[others]), name
+    for name in ("X", "U"):
+        assert torch.equal(getattr(res.state, name)[others], getattr(clean.state, name)[others])
