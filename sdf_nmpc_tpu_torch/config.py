@@ -1,7 +1,8 @@
 """Immutable nested config with ``replace()``, and the default values.
 
 The defaults are the JAX package's ``config/default.yaml`` written out as a
-Python dict, so this package reads no YAML (the GPU host has no YAML parser).
+Python dict, so ``default_config`` reads no YAML (the GPU host has no YAML
+parser); ``load_config`` reads a YAML file where PyYAML is installed.
 A tier-1 test holds ``default_config()`` equal to the JAX package's, field for
 field, so the two copies cannot drift.  The values are kept exactly as the
 YAML loader produces them, including ``qp_ratio_cap``, which YAML 1.1 reads
@@ -11,8 +12,10 @@ The TPU-only knobs ``matmul_precision`` and ``qp_matmul_precision`` are kept
 so configs carry over, and ignored.  ``sdf_fused_dtype`` is read by the RTI
 step: on the card ``f32`` runs kernel 2 in IEEE f32 and ``f32x3`` (the
 default; the TPU's three-pass bf16 emulation of f32) as 3xTF32 on the
-tensor cores; on the CPU both run the exact plain version; the bf16 modes
-(``bf16``, ``mixed``) raise.  Every other product is IEEE f32.
+tensor cores, ``bf16`` with every product of bf16-rounded operands on the
+bf16 tensor cores and ``mixed`` with the primal rows in IEEE f32 and the
+tangent rows in bf16; on the CPU every mode runs the exact plain version.
+Every other product is IEEE f32.
 """
 
 from __future__ import annotations
@@ -197,6 +200,21 @@ def make_config(raw: Mapping) -> FrozenConfig:
     b_p_c = tuple(float(v) for v in cfg.robot.sensor_extrinsics.position)
     b_r_c = _euler2rot_tuple(cfg.robot.sensor_extrinsics.orientation)
     return cfg.replace(sensor=dict(B_p_C=b_p_c, B_R_C=b_r_c))
+
+
+def load_config(config_file) -> FrozenConfig:
+    """Read a YAML config (the JAX package's ``config/*.yaml`` format) and
+    validate and complete it as ``make_config`` does.  PyYAML is imported
+    here: a host without it raises ImportError and can build the config
+    from a dict with ``make_config``."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError(
+            "load_config reads YAML with PyYAML, which is not installed; build the config "
+            "from a dict with make_config(raw) instead") from e
+    with open(config_file, "r") as f:
+        return make_config(yaml.safe_load(f))
 
 
 def default_config() -> FrozenConfig:

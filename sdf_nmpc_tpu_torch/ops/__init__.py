@@ -21,6 +21,8 @@ from .sdf_fused import (
     embed_with_tangents,
     pack_neural_df_params,
     sdf_value_grad,
+    sdf_value_grad_bf16_plain,
+    sdf_value_grad_mixed_plain,
     sdf_value_grad_plain,
     sdf_value_grad_x3_plain,
 )
@@ -30,6 +32,7 @@ __all__ = [
     "factor_solve", "factor_solve_plain",
     "ip_phase", "ip_phase_plain", "launch_counts", "lin_y_sens", "lin_y_sens_plain",
     "make_fused_solve", "pack_neural_df_params", "reset_launch_counts", "sdf_value_grad",
-    "sdf_value_grad_plain", "sdf_value_grad_x3_plain", "solve", "solve_plain", "stiff_factor_solve",
+    "sdf_value_grad_bf16_plain", "sdf_value_grad_mixed_plain", "sdf_value_grad_plain",
+    "sdf_value_grad_x3_plain", "solve", "solve_plain", "stiff_factor_solve",
     "stiff_factor_solve_plain", "stiff_resolve", "stiff_resolve_plain",
 ]

@@ -25,13 +25,14 @@ import torch
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("lin_y_sens.cu", "erk4_sens.cu", "sdf_fused.cu", "sdf_fused_x3.cu", "condense.cu",
-           "ip_phase.cu", "qp_solve.cu")
+SOURCES = ("lin_y_sens.cu", "erk4_sens.cu", "sdf_fused.cu", "sdf_fused_x3.cu",
+           "sdf_fused_bf16.cu", "condense.cu", "ip_phase.cu", "qp_solve.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launch_counts = {"lin_y_sens": 0, "erk4_sens": 0, "sdf_fused": 0, "sdf_fused_x3": 0,
-                 "condense": 0, "ip_phase": 0, "factor_solve": 0, "solve": 0,
+                 "sdf_fused_bf16": 0, "sdf_fused_mixed": 0, "condense": 0, "ip_phase": 0,
+                 "factor_solve": 0, "solve": 0,
                  "stiff_factor_solve": 0, "stiff_resolve": 0}
 
 # what the build of the loaded library printed (ptxas register / spill
@@ -49,6 +50,10 @@ _SIGNATURES = {
     "sdf_fused_launch": [_P] * 15 + [_I] * 5 + [_F, _P],
     "sdf_fused_x3_launch": [_P] * 9 + [_I] * 6 + [_F, _P],
     "sdf_fused_x3_geometry": [_P] * 3,
+    # (emb, demb, lat, Wb, Wf, bias, w5, w5r, b5, df, grad, P, nemb, L, nxe, nxl,
+    #  mixed, act, w0, stream)
+    "sdf_fused_bf16_launch": [_P] * 11 + [_I] * 7 + [_F, _P],
+    "sdf_fused_bf16_geometry": [_I] + [_P] * 3,
     "condense_launch": [_P] * 18 + [_I] * 6 + [_P],
     "condense_geometry": [_I] * 5 + [_P] * 3,
     "ip_phase_launch": [_P] * 12 + [_I] * 7 + [_F] * 5 + [_P],

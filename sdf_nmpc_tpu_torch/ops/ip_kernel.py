@@ -55,7 +55,10 @@ def _mtv(M, v):
 
 
 def _max_step(v, dv):
-    """Largest alpha with v + alpha dv > 0, per scenario: (B, n) -> (B,)."""
+    """Largest alpha with v + alpha dv > 0, per scenario: (B, n) -> (B,);
+    inf for n = 0, as solver/qp.py's ``_max_step``."""
+    if v.shape[-1] == 0:
+        return v.new_full(v.shape[:-1], float("inf"))
     neg = dv < 0
     ratio = torch.where(neg, -v / torch.where(neg, dv, -torch.ones_like(dv)),
                         torch.full_like(v, float("inf")))
@@ -197,7 +200,10 @@ def ip_iteration(data, state, k_s, it_idx, in_tail, c, kernels=False, ir_steps=0
     else:
         eta_mild = eta
 
-    A = H + (C.transpose(-1, -2) * eta_mild[:, None, :]) @ C + torch.diag_embed(rb)
+    if C.shape[1]:
+        A = H + (C.transpose(-1, -2) * eta_mild[:, None, :]) @ C + torch.diag_embed(rb)
+    else:  # nc = 0: solver/qp.py:375-378
+        A = H + torch.diag_embed(rb)
     diagA = torch.diagonal(A, dim1=-2, dim2=-1)
     A = A + torch.diag_embed(10 * eps * (diagA.abs() + 1.0))
 
@@ -229,7 +235,9 @@ def ip_iteration(data, state, k_s, it_idx, in_tail, c, kernels=False, ir_steps=0
 
     def m_apply(x):
         """Exact Newton-matrix product (mild rows capped, stiff exact)."""
-        out = _mv(H, x) + rb * x + _mtv(C, eta_mild * _mv(C, x))
+        out = _mv(H, x) + rb * x
+        if C.shape[1]:
+            out = out + _mtv(C, eta_mild * _mv(C, x))
         if k_s > 0:
             out = out + _mtv(Cs, d_s * _mv(Cs, x))
         return out

@@ -1,7 +1,7 @@
 """Kernel 2: NeuralDF value + position gradient (``sdf_value_grad``).
 
-Counterpart of sdf_nmpc_tpu/ops/sdf_fused.py ``_kernel`` (:154) in its exact
-f32 mode, with the host prep of ``pack_neural_df_params`` (:44) and
+Counterpart of sdf_nmpc_tpu/ops/sdf_fused.py ``_kernel`` (:154) in its four
+modes, with the host prep of ``pack_neural_df_params`` (:44) and
 ``_embed_with_tangents`` (:103).  One pass evaluates the stacked rows
 
     rows = [primal; tangent_x; tangent_y; tangent_z]
@@ -15,7 +15,8 @@ cos(xb)] with xb = (x @ dirs) kron freqs, demb_k = [e_k, cos(xb) J_k,
 sin(xb + pi/2); in f32 the two differ for large |xb|, so this path mirrors
 the JAX kernel path and ``NeuralDF.forward`` mirrors ``module.apply``.
 
-``sdf_value_grad`` takes the solver's ``sdf_fused_dtype`` as ``mode``:
+``sdf_value_grad`` takes the solver's ``sdf_fused_dtype`` as ``mode``, the
+four modes of the JAX kernel (``MODES``):
 
 - ``f32`` (the JAX kernel's HIGHEST products): on a CUDA tensor it launches
   ``csrc/sdf_fused.cu``, IEEE f32 on the CUDA cores;
@@ -24,10 +25,15 @@ the JAX kernel path and ``NeuralDF.forward`` mirrors ``module.apply``.
   tensor-core counterpart, a 3xTF32 split whose plain version is
   ``sdf_value_grad_x3_plain`` (the same rounding and grouping in torch f32
   matmuls);
-- on a CPU tensor, either mode runs the exact plain version
+- ``bf16`` (every product, the head's included, of bf16-rounded operands)
+  and ``mixed`` (the primal rows exact, the tangent rows so): on a CUDA
+  tensor they launch ``csrc/sdf_fused_bf16.cu`` on the bf16 tensor cores,
+  whose plain versions are ``sdf_value_grad_bf16_plain`` and
+  ``sdf_value_grad_mixed_plain``;
+- on a CPU tensor, every mode runs the exact plain version
   ``sdf_value_grad_plain``, as the JAX package runs its autodiff path off the
   TPU (``make_fused_sdf_vg`` returns None there), so no CPU result depends
-  on the mode.
+  on the mode.  ``PLAIN`` maps each mode to its plain version.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ import torch
 from ..nn.embeddings import PositionEmbedding
 from . import _lib
 
-MODES = ("f32", "f32x3")
+MODES = ("f32", "f32x3", "bf16", "mixed")
 _ACT_CODES = {"sin": 0, "relu": 1, "softplus": 2}
 _HID = 256  # the kernels' padded hidden width
 _KC = 32  # sdf_fused.cu's weight-chunk rows
@@ -97,9 +103,13 @@ def _act_pair(z, act: str, w0: float):
     raise ValueError(act)
 
 
-def _value_grad(packed, pos, latent, mm):
+def _value_grad(packed, pos, latent, mm, mm_t=None, head=None):
     """The stacked-tangent pass with ``mm(A, i)`` for the products of dense
-    layer i (1-4); the head in f32."""
+    layer i (1-4) on the primal rows and ``mm_t(A, i)`` on the tangent rows
+    (default: ``mm``); ``head(A, tangent)`` for the head's products (default:
+    exact f32)."""
+    mm_t = mm_t or mm
+    head = head or (lambda A, tangent: A @ packed["W5"])
     emb, demb = embed_with_tangents(packed["embed_fn"], pos)
     P0 = torch.cat([emb, latent], dim=-1)  # (P, in1)
     T0 = torch.cat([demb, demb.new_zeros(demb.shape[:2] + (latent.shape[-1],))], dim=-1)
@@ -107,14 +117,14 @@ def _value_grad(packed, pos, latent, mm):
 
     def dense_pair(Pr, T, i):
         h, hp = _act_pair(mm(Pr, i) + packed[f"b{i}"], act, w0)
-        return h, hp[:, None, :] * mm(T, i)
+        return h, hp[:, None, :] * mm_t(T, i)
 
     H, T = dense_pair(P0, T0, 1)
     H, T = dense_pair(H, T, 2)
     H, T = dense_pair(torch.cat([H, P0], -1), torch.cat([T, T0], -1), 3)
     H, T = dense_pair(H, T, 4)
-    df = H @ packed["W5"] + packed["b5"]
-    return df[:, 0], (T @ packed["W5"])[..., 0]
+    df = head(H, False) + packed["b5"]
+    return df[:, 0], head(T, True)[..., 0]
 
 
 def sdf_value_grad_plain(packed, pos, latent):
@@ -155,6 +165,42 @@ def sdf_value_grad_x3_plain(packed, pos, latent):
         return hi @ w_hi + (hi @ w_lo + lo @ w_hi)
 
     return _value_grad(packed, pos, latent, mm3)
+
+
+def bf16_round(x):
+    """x rounded to bfloat16 to nearest even (``cvt.rn.bf16x2.f32``, JAX's
+    ``astype``), in x's dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _bf16_weight(packed, i):
+    """W_i (i = 1-5) rounded to bf16 (cached on ``packed``)."""
+    cache = packed.setdefault("_bf16_plain", {})
+    if i not in cache:
+        cache[i] = bf16_round(packed[f"W{i}"])
+    return cache[i]
+
+
+def sdf_value_grad_bf16_plain(packed, pos, latent):
+    """pos (P, 3), latent (P, L) f32 -> (df (P,), grad (P, 3)) in the bf16
+    mode's numerics: both operands of every product, the head's included,
+    rounded to bf16 (nearest even), then f32 matmuls; bias, activation and
+    act' in f32."""
+    mm = lambda A, i: bf16_round(A) @ _bf16_weight(packed, i)
+    return _value_grad(packed, pos, latent, mm, head=lambda A, tangent: mm(A, 5))
+
+
+def sdf_value_grad_mixed_plain(packed, pos, latent):
+    """As ``sdf_value_grad_bf16_plain`` for the tangent rows only: the primal
+    rows' products, the head's included, are exact f32."""
+    exact = lambda A, i: A @ packed[f"W{i}"]
+    rounded = lambda A, i: bf16_round(A) @ _bf16_weight(packed, i)
+    return _value_grad(packed, pos, latent, exact, mm_t=rounded,
+                       head=lambda A, tangent: (rounded if tangent else exact)(A, 5))
+
+
+PLAIN = {"f32": sdf_value_grad_plain, "f32x3": sdf_value_grad_x3_plain,
+         "bf16": sdf_value_grad_bf16_plain, "mixed": sdf_value_grad_mixed_plain}
 
 
 def _kernel_weights(packed) -> dict:
@@ -214,20 +260,11 @@ def _sdf_value_grad_cuda(packed, pos, latent):
     return df, grad
 
 
-def _x3_weights(packed) -> dict:
-    """sdf_fused_x3.cu's weights (cached on ``packed``): the four dense
-    layers as one sequence of 16-row chunks, zero-padded to width 256, the
-    input rows of layers 1 and 3 as [embedding, padded to a multiple of 16 |
-    latent, likewise], split once into W_hi = tf32(W) and W_lo = tf32(W -
-    W_hi) (the split of ``sdf_value_grad_x3_plain``); the biases as (4,
-    256), the head padded to 256.
-
-    ``W`` (n_chunks, 256 * 32) is the chunks as the kernel reads them: per
-    output column n, 32 words, per 8-row block kb at slot kb ^ (n % 2) and
-    per lane t of a quad [hi(t), hi(t + 4), lo(t), lo(t + 4)] (rows of the
-    block), so that one 16-byte load gives a lane its B fragments."""
-    if "_x3" in packed:
-        return packed["_x3"]
+def _chunk_sequence(packed):
+    """(W (16 n_chunks, 256), nxe, nxl): the four dense layers as the tensor-
+    core kernels read them, one sequence of 16-row chunks zero-padded to width
+    256, the input rows of layers 1 and 3 as [embedding, padded to a multiple
+    of 16 (nxe chunks) | latent, likewise (nxl chunks)]."""
     if any(s > _HID for s in packed["sizes"]):
         raise ValueError(f"the sdf kernel takes hidden widths <= {_HID}, got {packed['sizes']}")
     nemb, L, s1 = packed["nemb"], packed["L"], packed["sizes"][1]
@@ -245,16 +282,64 @@ def _x3_weights(packed) -> dict:
     W = torch.cat([inputs(packed["W1"]), block(packed["W2"], _HID),
                    block(packed["W3"][:s1], _HID), inputs(packed["W3"][s1:]),
                    block(packed["W4"], _HID)])
+    return W, ke // _KC3, kl // _KC3
+
+
+def _head_weights(packed) -> dict:
+    """The biases as (4, 256), the head padded to 256 and its bias."""
+    dev = packed["W1"].device
+
+    def pad(v):
+        out = torch.zeros(_HID, dtype=torch.float32, device=dev)
+        out[: v.shape[0]] = v
+        return out
+
+    return dict(bias=torch.stack([pad(packed[f"b{i}"]) for i in range(1, 5)]),
+                w5=pad(packed["W5"][:, 0]), b5=packed["b5"].to(torch.float32).contiguous())
+
+
+def _x3_weights(packed) -> dict:
+    """sdf_fused_x3.cu's weights (cached on ``packed``): ``_chunk_sequence``
+    split once into W_hi = tf32(W) and W_lo = tf32(W - W_hi) (the split of
+    ``sdf_value_grad_x3_plain``), and ``_head_weights``.
+
+    ``W`` (n_chunks, 256 * 32) is the chunks as the kernel reads them: per
+    output column n, 32 words, per 8-row block kb at slot kb ^ (n % 2) and
+    per lane t of a quad [hi(t), hi(t + 4), lo(t), lo(t + 4)] (rows of the
+    block), so that one 16-byte load gives a lane its B fragments."""
+    if "_x3" in packed:
+        return packed["_x3"]
+    W, nxe, nxl = _chunk_sequence(packed)
     hi, lo = (t.view(-1, 2, 2, 4, _HID) for t in _split_tf32(W))  # chunk, kb, row // 4, row % 4, n
     lanes = torch.stack([hi[:, :, 0], hi[:, :, 1], lo[:, :, 0], lo[:, :, 1]], -1)
     lanes = lanes.permute(0, 3, 1, 2, 4)  # chunk, n, kb, t, 4
     lanes[:, 1::2] = lanes[:, 1::2].flip(2)  # odd columns: the 8-row blocks swap slots
-    bias = torch.stack([block(packed[f"b{i}"][None], 1)[0] for i in range(1, 5)])
-    kw = dict(W=lanes.reshape(lanes.shape[0], -1).contiguous(), bias=bias,
-              w5=block(packed["W5"][:, 0][None], 1)[0],
-              b5=packed["b5"].to(torch.float32).contiguous(), nxe=ke // _KC3,
-              nxl=kl // _KC3)
+    kw = dict(W=lanes.reshape(lanes.shape[0], -1).contiguous(), nxe=nxe, nxl=nxl,
+              **_head_weights(packed))
     packed["_x3"] = kw
+    return kw
+
+
+# the rows of a 16-row chunk in the order sdf_fused_bf16.cu reads them per
+# column: lane t of a quad takes rows (2t, 2t + 1, 2t + 8, 2t + 9)
+_BF16_ROWS = (0, 1, 8, 9, 2, 3, 10, 11, 4, 5, 12, 13, 6, 7, 14, 15)
+
+
+def _bf16_weights(packed) -> dict:
+    """sdf_fused_bf16.cu's weights (cached on ``packed``): ``_chunk_sequence``
+    rounded to bf16 as ``Wb`` (n_chunks, 256, 16), per output column the 16
+    rows in ``_BF16_ROWS`` order, so that one 8-byte load gives a lane its B
+    fragment; the same chunks in f32, row-major, as ``Wf`` (n_chunks, 16, 256)
+    for the mixed mode's primal products; ``_head_weights`` and the head
+    rounded to bf16, ``w5r``."""
+    if "_bf16" in packed:
+        return packed["_bf16"]
+    W, nxe, nxl = _chunk_sequence(packed)
+    Wf = W.view(-1, _KC3, _HID)
+    Wb = Wf.to(torch.bfloat16)[:, list(_BF16_ROWS)].transpose(1, 2).contiguous()
+    head = _head_weights(packed)
+    kw = dict(Wb=Wb, Wf=Wf.contiguous(), nxe=nxe, nxl=nxl, w5r=bf16_round(head["w5"]), **head)
+    packed["_bf16"] = kw
     return kw
 
 
@@ -284,14 +369,50 @@ def sdf_fused_x3_geometry() -> dict:
     return _lib.geometry("sdf_fused_x3_geometry")
 
 
+def _sdf_value_grad_bf16_cuda(packed, pos, latent, mode):
+    P = pos.shape[0]
+    mixed = mode == "mixed"
+    kw = _bf16_weights(packed)
+    emb, demb = embed_with_tangents(packed["embed_fn"], pos)
+    emb, demb = emb.contiguous(), demb.contiguous()
+    Wb, Wf = kw["Wb"], kw["Wf"] if mixed else None
+    f32 = [kw[k] for k in ("bias", "w5", "w5r", "b5")] + ([Wf] if mixed else [])
+    _lib.require_cuda_f32(f"sdf_value_grad ({mode})", pos, latent, emb, demb, *f32)
+    if Wb.device != pos.device or Wb.dtype != torch.bfloat16 or not Wb.is_contiguous():
+        raise ValueError(f"sdf_value_grad ({mode}): the bf16 weights are not a contiguous "
+                         f"bfloat16 tensor on {pos.device}")
+    _lib.require_shape("sdf_value_grad pos", pos, (P, 3))
+    _lib.require_shape("sdf_value_grad latent", latent, (P, packed["L"]))
+    df = torch.empty(P, dtype=torch.float32, device=pos.device)
+    grad = torch.empty(P, 3, dtype=torch.float32, device=pos.device)
+    err = _lib.library().sdf_fused_bf16_launch(
+        emb.data_ptr(), demb.data_ptr(), latent.data_ptr(), Wb.data_ptr(),
+        Wf.data_ptr() if mixed else None,
+        *[kw[k].data_ptr() for k in ("bias", "w5", "w5r", "b5")], df.data_ptr(), grad.data_ptr(),
+        P, packed["nemb"], packed["L"], kw["nxe"], kw["nxl"], int(mixed),
+        _ACT_CODES[packed["act"]], packed["w0"], _lib.stream_ptr())
+    _lib.check(err, f"sdf_value_grad ({mode})")
+    _lib.launch_counts[f"sdf_fused_{mode}"] += 1
+    return df, grad
+
+
+def sdf_fused_bf16_geometry(mode) -> dict:
+    """The bf16 or mixed kernel's launch on the current card: threads per
+    block, dynamic shared bytes per block, resident blocks per SM."""
+    return _lib.geometry("sdf_fused_bf16_geometry", int(mode == "mixed"))
+
+
 def sdf_value_grad(packed, pos, latent, mode="f32"):
     """pos (P, 3), latent (P, L) -> (df (P,), grad (P, 3)).  On CUDA tensors
-    the kernel of ``mode`` (``f32``: sdf_fused.cu, ``f32x3``: sdf_fused_x3.cu);
-    on CPU tensors the exact plain version, whatever the mode."""
+    the kernel of ``mode`` (``f32``: sdf_fused.cu, ``f32x3``: sdf_fused_x3.cu,
+    ``bf16`` and ``mixed``: sdf_fused_bf16.cu); on CPU tensors the exact plain
+    version, whatever the mode."""
     if mode not in MODES:
         raise ValueError(f"sdf_value_grad mode {mode!r}: one of {MODES}")
     if pos.is_cuda:
         if mode == "f32x3":
             return _sdf_value_grad_x3_cuda(packed, pos, latent)
+        if mode in ("bf16", "mixed"):
+            return _sdf_value_grad_bf16_cuda(packed, pos, latent, mode)
         return _sdf_value_grad_cuda(packed, pos, latent)
     return sdf_value_grad_plain(packed, pos, latent)

@@ -14,15 +14,17 @@ residual.  It takes one of two paths, chosen from the arguments and the
 shapes before anything runs, as solver/qp.py:144-199 chooses:
 
 * the fused path (``chol_impl`` 'auto' or 'fused', where the fused kernel
-  supports the problem: f32, no warm duals, no refinement, rows present and
-  a stiff split of a multiple of 8 rows, at most nc): each phase is one
-  ``ops.ip_kernel.ip_phase`` call (kernel 4);
+  supports the problem: f32, no warm duals, no refinement, constraint rows
+  present (nc > 0) and a stiff split of a multiple of 8 rows, at most nc):
+  each phase is one ``ops.ip_kernel.ip_phase`` call (kernel 4);
 * the composed path (``chol_impl`` 'pallas', or anything the fused kernel
   does not support): the iteration body runs in torch, one iteration at a
   time, and its Newton solves go through kernels 5-8
   (``ops.qp_kernels``): kernels 7 and 8 for a stiff split of a multiple of
-  8 rows, else kernels 5 and 6.  Warm duals, refinement sweeps, f64 and a
-  stiff split the fused kernel does not take go this way.
+  8 rows, else kernels 5 and 6.  Warm duals, refinement sweeps, f64, a
+  stiff split the fused kernel does not take and a QP without constraint
+  rows (nc = 0: no stiff rows, kernels 5 and 6 on H + diag(rb)) go this
+  way.
 
 On CUDA tensors the kernels run (f32); on CPU tensors their plain versions
 (f32 or f64).
@@ -93,8 +95,6 @@ def solve_qp(qp: QpData, iters: int = 8, mu0: float = 0.1, box_margin: float = 1
              chol_impl: str = "auto") -> QpResult:
     """Solve a batch of condensed QPs with ``iters`` IP iterations."""
     nc = qp.c0.shape[-1]
-    if nc == 0:
-        raise NotImplementedError("a QP without general constraint rows is not ported")
     if chol_impl not in ("auto", "fused", "pallas"):
         raise NotImplementedError(
             f"chol_impl={chol_impl!r} is not ported (only 'auto', 'fused' and 'pallas'; "
@@ -102,7 +102,7 @@ def solve_qp(qp: QpData, iters: int = 8, mu0: float = 0.1, box_margin: float = 1
     n_stiff = min(stiff_iters if stiff_iters is not None else iters, iters)
     n_warm = iters - n_stiff if k_stiff > 0 else iters
     fused = chol_impl != "pallas" and (
-        qp.g.dtype == torch.float32 and warm_duals is None and ir_steps == 0
+        qp.g.dtype == torch.float32 and warm_duals is None and ir_steps == 0 and nc > 0
         and (n_stiff == 0 or (k_stiff % 8 == 0 and nc >= k_stiff)))
     if fused:
         run = make_fused_solve(iters=iters, n_warm=n_warm, k_stiff=k_stiff, mu0=mu0,

@@ -11,16 +11,21 @@ directly:
   9. ``ops.lin_kernels.erk4_sens``    RK4 + A, B (rates, wrench, props), the
      stage residual and its Jacobians then by ``torch.func``
   2. ``ops.sdf_fused.sdf_value_grad`` NeuralDF value + position gradient
-     (``solver.sdf_fused_dtype``: f32 or the default 3xTF32 route)
+     (``solver.sdf_fused_dtype``: f32, the default 3xTF32 route, bf16 or
+     mixed); for a NeuralDF with res != 'full' or under ``solver.fused_sdf:
+     False`` the autodiff row (``ocp.autodiff_value_grad``, torch.func), as
+     the JAX step takes it without a fused value+grad
   3. ``ops.condense_kernel.condense`` condensing recursion + condensed rows
+     (at nh = 0, BASELINE config 1, its plain version, as the JAX step)
   4. ``ops.ip_kernel.ip_phase``       (inside ``solve_qp``) two IP phases, or
   5-8. ``ops.qp_kernels``             (inside ``solve_qp``) the composed QP
      path's Newton solves, one factor and one or more solves per iteration
 
 ``solve_qp`` picks the fused kernel 4 or the composed path from the config
-(``chol_impl``, ``dual_warm_start``, ``ir_steps``, ``qp_stiff_k``), as the
-JAX step does.  With ``dual_warm_start`` the state carries the QP duals from
-tick to tick (acados' ``qp_solver_warm_start``).
+(``chol_impl``, ``dual_warm_start``, ``ir_steps``, ``qp_stiff_k``) and the
+rows (nc = 0 takes the composed path), as the JAX step does.  With
+``dual_warm_start`` the state carries the QP duals from tick to tick
+(acados' ``qp_solver_warm_start``).
 
 The FoV-row, ``yN`` and terminal ``hN`` Jacobians use ``torch.func``; the
 Gram H/g assembly (``gram``) accumulates in f64, where the JAX step forms it
@@ -37,7 +42,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd, jacrev, vmap
 
-from ..ocp import OcpSpec
+from ..ocp import OcpSpec, autodiff_value_grad
 from ..ops import condense_kernel, lin_kernels, sdf_fused
 from .qp import QpData, QpDuals, solve_qp
 
@@ -208,18 +213,19 @@ def _check_supported(cfg, N):
     # every knob the port reads: (default, the values it ports); any other
     # value raises rather than being dropped
     ported = {"chol_impl": ("auto", ("auto", "fused", "pallas")),
-              "lin_impl": ("auto", ("auto", "pallas")), "fused_sdf": (True, (True,)),
+              "lin_impl": ("auto", ("auto", "pallas")), "fused_sdf": (True, (True, False)),
               # kernel 2's routes on the card: f32 IEEE on the CUDA cores (the
               # JAX kernel's HIGHEST), f32x3 3xTF32 on the tensor cores (its
-              # bf16x3 _dot3); the CPU runs the exact plain version for both
-              "sdf_fused_dtype": ("f32x3", ("f32", "f32x3")),
+              # bf16x3 _dot3), bf16 and mixed on the bf16 tensor cores; the CPU
+              # runs the exact plain version for every mode
+              "sdf_fused_dtype": ("f32x3", sdf_fused.MODES),
               "qp_data_bf16": (False, (False,)), "qp_compute_dtype": (None, (None,))}
     bad = {k: s.get(k, d) for k, (d, ok) in ported.items() if s.get(k, d) not in ok}
     if bad:
         raise NotImplementedError(
             f"solver settings not ported: {bad} (the XLA and custom linear-algebra "
-            "routes, the bf16 SDF modes and the numerics-attribution hooks are queued in "
-            "ROADMAP.md)")
+            "routes and the numerics-attribution hooks are queued in ROADMAP.md section 1 "
+            "item 10)")
     if str(s.dtype) not in _DTYPES:
         raise ValueError(f"unsupported solver dtype {s.dtype!r}")
 
@@ -239,10 +245,10 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
     if ocp.ny != ocp.model.ny:
         raise NotImplementedError(
             "extra stage cost rows (sdf_cost) are formulation extras, queued in ROADMAP.md "
-            "section 1 item 11")
+            "section 1 item 6")
     qp_iters, k_stiff, stiff_iters, ratio_cap = _budget_knobs(cfg, budget)
     nz = N * nu
-    nh = ocp.nh
+    nh, nhN = ocp.nh, ocp.nhN
     layout = ocp.layout
     kkt_tol = cfg.solver.get("kkt_tol", None)
     mu0, box_margin = float(cfg.solver.barrier_init), float(cfg.solver.box_margin)
@@ -264,12 +270,22 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
     z1_all = torch.cat([z1_stage, zlN])
     z2_all = torch.cat([z2_stage, ZlN])
 
-    # the network in the solver dtype: packed for kernel 2, and as a module
-    # for the terminal row (differentiated by autograd, as in JAX) and evals
-    packed = sdf_fused.pack_neural_df_params(ocp.sdf, dtype)
-    net = copy.deepcopy(ocp.sdf).to(dtype).requires_grad_(False)
-    sdf_mode = str(cfg.solver.get("sdf_fused_dtype", "f32x3"))
-    value_grad = lambda pos, latent: sdf_fused.sdf_value_grad(packed, pos, latent, mode=sdf_mode)
+    # the network in the solver dtype, as a module for the terminal row
+    # (differentiated by autograd, as in JAX) and evals; the stage SDF row's
+    # value and position gradient (JAX sqp.py's sdf_fast): kernel 2 by
+    # sdf_fused_dtype for a res='full' network with fused_sdf on, else the
+    # autodiff row, as the JAX package takes without a fused value+grad
+    # (ops/sdf_fused.py:337-339, utils/accuracy.py:165-172)
+    net = value_grad = None
+    if ocp.sdf is not None:
+        net = copy.deepcopy(ocp.sdf).to(dtype).requires_grad_(False)
+        if bool(cfg.solver.get("fused_sdf", True)) and ocp.sdf.res == "full":
+            packed = sdf_fused.pack_neural_df_params(ocp.sdf, dtype)
+            sdf_mode = str(cfg.solver.get("sdf_fused_dtype", "f32x3"))
+            value_grad = lambda pos, latent: sdf_fused.sdf_value_grad(packed, pos, latent,
+                                                                      mode=sdf_mode)
+        else:
+            value_grad = autodiff_value_grad(net)
 
     cheap = ocp.h_stage_cheap
     n_cheap = len(ocp.cheap_stage_indices)
@@ -290,7 +306,7 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
     y_lin = vmap(y_node)
     fov_jac = vmap(jacfwd(fov_node, argnums=0))
     yN_jac = vmap(jacfwd(ocp.yN, argnums=0))
-    hN_jac = vmap(jacrev(lambda x, p: ocp.h_term(x, p, net), argnums=0))
+    hN_jac = vmap(jacrev(lambda x, p: ocp.h_term(x, p, net), argnums=0)) if nhN else None
 
     def step(state: SolverState, inp: SolveInputs) -> SolveResult:
         X = state.X.to(dtype)
@@ -318,15 +334,15 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
         res, Jyx, Jyu = res.reshape(B, N, ny), Jyx.reshape(B, N, ny, nx), Jyu.reshape(B, N, ny, nu)
 
         # ---- constraint rows: FoV rows by jacfwd over x[:3], sdf row by kernel 2 ----
-        h_cheap = cheap(XN_, PN_)
-        J3 = fov_jac(XN_[:, :3], XN_[:, 3:], PN_)  # (M, n_cheap, 3)
-        h_sdf, dhdx3 = ocp.sdf_row_batch(XN_, PN_, value_grad)
         h_val = torch.zeros(M, nh, dtype=dtype, device=dev)
         Jhx = torch.zeros(M, nh, nx, dtype=dtype, device=dev)
-        h_val[:, :n_cheap] = h_cheap
-        Jhx[:, :n_cheap, :3] = J3
-        h_val[:, ocp.sdf_stage_idx] = h_sdf.to(dtype)
-        Jhx[:, ocp.sdf_stage_idx, :3] = dhdx3.to(dtype)
+        if n_cheap:
+            h_val[:, :n_cheap] = cheap(XN_, PN_)
+            Jhx[:, :n_cheap, :3] = fov_jac(XN_[:, :3], XN_[:, 3:], PN_)  # (M, n_cheap, 3)
+        if nh:
+            h_sdf, dhdx3 = ocp.sdf_row_batch(XN_, PN_, value_grad)
+            h_val[:, ocp.sdf_stage_idx] = h_sdf.to(dtype)
+            Jhx[:, ocp.sdf_stage_idx, :3] = dhdx3.to(dtype)
         h_val, Jhx = h_val.reshape(B, N, nh), Jhx.reshape(B, N, nh, nx)
         Jhu = torch.zeros(B, N, nh, nu, dtype=dtype, device=dev)
         defect = x_next - X[:, 1:]
@@ -335,12 +351,17 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
         xN, pN = X[:, N], p[:, N]
         resN = ocp.yN(xN, pN) - inp.yrefN.to(dtype)
         JxN = yN_jac(xN, pN)
-        hN_val = ocp.h_term(xN, pN, net)
-        JhxN = hN_jac(xN, pN)
+        if nhN:
+            hN_val, JhxN = ocp.h_term(xN, pN, net), hN_jac(xN, pN)
+        else:
+            hN_val, JhxN = X.new_zeros(B, 0), X.new_zeros(B, 0, nx)
 
-        # ---- 2. condensing: kernel 3 ----
+        # ---- 2. condensing: kernel 3; without constraint rows (enable_sdf
+        # off) the plain recursion, as JAX takes its non-kernel condensing at
+        # nh = 0 (sqp.py:501): kernel 3 needs nh >= 1 ----
         e0 = x0 - X[:, 0]
-        e_st, E_st, eN, EN, G, res_c, C_st, c_st = condense_kernel.condense(
+        condense = condense_kernel.condense if nh else condense_kernel.condense_plain
+        e_st, E_st, eN, EN, G, res_c, C_st, c_st = condense(
             *[v.contiguous() for v in (A, Bm, defect, e0, Jyx, Jyu, res, Jhx, Jhu, h_val)])
 
         # ---- 3. condensed Hessian / gradient: one Gram product ----
@@ -385,7 +406,8 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
                                  STATUS_NOT_CONVERGED, status).to(torch.int32)
         U_new = torch.where(bad[:, None, None], U, U_new)
         X_new = torch.where(bad[:, None, None], X, X_new)
-        evals = ocp.sdf_eval(X_new, p, net)[..., None] if with_evals else None
+        evals = (ocp.sdf_eval(X_new, p, net)[..., None]
+                 if with_evals and ocp.sdf_eval is not None else None)
         return SolveResult(
             state=SolverState(X=X_new, U=U_new,
                               qp_duals=qp_res.duals if state.qp_duals is not None else None),

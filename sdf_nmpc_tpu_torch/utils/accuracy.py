@@ -5,8 +5,11 @@ the cold (:356) and warm/steady replay checks (:457): 32 hard random cold
 starts for the default att + neural-SDF OCP with the trained 4x256 NeuralDF,
 held against ``tests/golden/accuracy_ref_u0.npz`` (a CPU f64/40-iteration
 solve), and 16 scenarios x 8 captured warm ticks replayed from
-``tests/golden/warm_ref.npz``.  The other five quad families (``model=``)
-run the same OCP: their first 8 cold scenarios are held against the
+``tests/golden/warm_ref.npz``.  The same 32 cold starts of BASELINE config 1
+(``variant='nosdf'``: enable_sdf off, no network) are held against the
+independent oracle's ``nosdf_u0`` in ``tests/golden/oracle_u0.npz``.  The
+other five quad families (``model=``) run the same OCP: their first 8 cold
+scenarios are held against the
 independent oracle's ``tests/golden/oracle_u0.npz`` (``cold_reference``)
 and their replays read ``warm_ref_<model>.npz`` (``warm_npz_path``).  The
 goldens are read with numpy only.
@@ -100,10 +103,12 @@ def family_config(cfg, model=None):
     return cfg
 
 
-def build_setup(device="cuda", solver_over=None, model=None):
+def build_setup(device="cuda", solver_over=None, model=None, variant="sdf"):
     """(cfg, ocp, layout, latents) of the workload: the trained production
     NeuralDF and its encoded-scene latents from ``weights/``; ``model``: a
-    quad family other than the default att."""
+    quad family other than the default att.  ``variant``: 'sdf' (BASELINE
+    config 4) or 'nosdf' (config 1: enable_sdf off, no network, latents
+    None: the scenarios keep the seeded draw, which no row reads)."""
     from ..config import default_config
     from ..nn.weights import load_prod_latents, load_prod_sdf
     from ..ocp import build_ocp
@@ -112,6 +117,11 @@ def build_setup(device="cuda", solver_over=None, model=None):
     cfg = family_config(default_config().replace(nn=dict(size_latent=LATENT)), model)
     if solver_over:
         cfg = cfg.replace(solver=solver_over)
+    if variant == "nosdf":
+        cfg = cfg.replace(flags=dict(enable_sdf=False))
+        return cfg, build_ocp(cfg, device=device), ParamLayout.from_cfg(cfg), None
+    if variant != "sdf":
+        raise ValueError(f"unknown variant {variant!r}")
     sdf = load_prod_sdf(require_latent=LATENT, require_layers=LAYERS, device=device)
     lat = load_prod_latents()
     if sdf is None or lat is None or lat.shape[0] < N_SCEN:
@@ -142,21 +152,29 @@ def _dual_ws(cfg) -> bool:
     return bool(cfg.solver.get("dual_warm_start", False))
 
 
-def cold_reference(model=None):
+def cold_reference(model=None, variant="sdf"):
     """(u0 golden, scenario count) of a family's cold check: att's 32 of
     accuracy_ref_u0.npz, another family's first FAMILY_SCEN against the
-    independent oracle's u0 in oracle_u0.npz."""
+    independent oracle's u0 in oracle_u0.npz; BASELINE config 1 ('nosdf',
+    att) the oracle's 32 nosdf_u0."""
+    if variant == "nosdf":
+        if model not in (None, "att"):
+            raise ValueError("the oracle's nosdf goldens are att's")
+        return np.load(ORACLE_NPZ)["nosdf_u0"], N_SCEN
     if model in (None, "att"):
         return np.load(REF_NPZ)["u0"], N_SCEN
     return np.load(ORACLE_NPZ)[f"{ORACLE_KEYS[model]}_u0"], FAMILY_SCEN
 
 
-def check_accuracy(device="cuda", solver_over=None, model=None):
-    """Cold-start u0 error against the family's golden (cold_reference)."""
+def check_accuracy(device="cuda", solver_over=None, model=None, variant="sdf"):
+    """Cold-start u0 error against the family's golden (cold_reference);
+    ``variant`` 'nosdf': BASELINE config 1 against the oracle's nosdf_u0, as
+    the JAX package's utils/accuracy.py:118-161 and
+    tests/test_oracle_parity.py hold it."""
     from ..solver import init_state, make_rti_step
 
-    ref, n = cold_reference(model)
-    cfg, ocp, layout, lat = build_setup(device, solver_over, model)
+    ref, n = cold_reference(model, variant)
+    cfg, ocp, layout, lat = build_setup(device, solver_over, model, variant)
     dtype = torch.float64 if str(cfg.solver.dtype) == "float64" else torch.float32
     inputs = scenario_inputs(ocp, build_scenarios(cfg, ocp, layout, lat)[:n], dtype, ocp.device)
     state = init_state(ocp, inputs.x0, dtype, dual_warm_start=_dual_ws(cfg))

@@ -220,6 +220,79 @@ MATH_CONSTANTS_H = """
 """
 
 
+# bf16.cuh and the cp.async part of tf32.cuh for sdf_fused_bf16.cu: rounding
+# to bf16 to nearest even on the bits; the m16n8k16 product gathers the
+# warp's fragments through a per-warp buffer between two warp barriers (as a
+# shuffle does), forms each lane's four outputs from the exact bf16 products
+# summed in double; the copies are done at once.
+BF16_CUH = r"""
+#pragma once
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include "common.cuh"
+
+struct alignas(8) float2 { float x, y; };
+struct alignas(8) uint2 { uint32_t x, y; };
+
+namespace bf16 {
+inline uint32_t bits(float x) {
+  uint32_t u;
+  std::memcpy(&u, &x, 4);
+  return (u + 0x7FFFu + ((u >> 16) & 1u)) >> 16;
+}
+inline float from_bits(uint32_t b) {
+  const uint32_t u = b << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline uint32_t pack(float lo, float hi) { return bits(lo) | (bits(hi) << 16); }
+inline float rn(float x) { return from_bits(bits(x)); }
+inline uint32_t fragments[64][32][6];  // per warp and lane: a[4], b[2]
+inline void mma_zero(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  const int w = int(threadIdx.x) >> 5, lane = int(threadIdx.x) & 31;
+  std::memcpy(fragments[w][lane], a, 16);
+  std::memcpy(fragments[w][lane] + 4, b, 8);
+  emu::warp_barriers[w]->arrive_and_wait();
+  float A[16][16], B[16][8];
+  for (int l = 0; l < 32; ++l) {
+    const int g = l >> 2, t = l & 3;
+    const uint32_t* r = fragments[w][l];
+    const int rows[4] = {g, g + 8, g, g + 8}, cols[4] = {2 * t, 2 * t, 2 * t + 8, 2 * t + 8};
+    for (int i = 0; i < 4; ++i) {
+      A[rows[i]][cols[i]] = from_bits(r[i] & 0xFFFFu);
+      A[rows[i]][cols[i] + 1] = from_bits(r[i] >> 16);
+    }
+    for (int i = 0; i < 2; ++i) {
+      B[2 * t + 8 * i][g] = from_bits(r[4 + i] & 0xFFFFu);
+      B[2 * t + 8 * i + 1][g] = from_bits(r[4 + i] >> 16);
+    }
+  }
+  emu::warp_barriers[w]->arrive_and_wait();
+  const int g = lane >> 2, t = lane & 3;
+  for (int i = 0; i < 4; ++i) {
+    double s = 0;
+    for (int k = 0; k < 16; ++k) s += double(A[g + 8 * (i >> 1)][k]) * B[k][2 * t + (i & 1)];
+    d[i] = float(s);
+  }
+}
+}  // namespace bf16
+"""
+
+TF32_COPIES_CUH = """
+#pragma once
+#include <cstring>
+namespace tf32 {
+inline void copy16(float* dst, const float* src) { std::memcpy(dst, src, 16); }
+inline void copy4(float* dst, const float* src, bool valid) { *dst = valid ? *src : 0.f; }
+inline void commit() {}
+template <int N>
+inline void wait() {}
+}  // namespace tf32
+"""
+
+
 def emulated_source(text: str) -> str:
     """A CUDA source rewritten for the emulation: dynamic shared memory from
     the emulated block, triple-chevron launches through emu::launch."""
@@ -228,13 +301,17 @@ def emulated_source(text: str) -> str:
     return re.sub(r"(\w+(?:<[\w, ]+>)?)<<<(.*?)>>>\(", r"emu::launch(\1, \2, ", text)
 
 
-def build_emulated(source: Path, out_dir: Path, extra: str = "") -> Path:
+def build_emulated(source: Path, out_dir: Path, extra: str = "", headers=None) -> Path:
     """g++ build of ``source`` (its headers from its own directory) into a
-    shared library in ``out_dir``; ``extra``: C++ appended after the source."""
+    shared library in ``out_dir``; ``extra``: C++ appended after the source;
+    ``headers``: {name: text} of more emulated headers, found before the
+    source's own."""
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
     (out_dir / "math_constants.h").write_text(MATH_CONSTANTS_H)
     (out_dir / "async_copy.cuh").write_text(ASYNC_COPY_H)  # found before the source's own
+    for name, text in (headers or {}).items():
+        (out_dir / name).write_text(text)
     src = out_dir / (source.stem + "_emu.cc")
     src.write_text(emulated_source(source.read_text()) + extra)
     lib = out_dir / ("lib" + source.stem + "_emu.so")

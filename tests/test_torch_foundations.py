@@ -26,6 +26,40 @@ def test_default_config_equals_jax_field_for_field():
     assert hash(t) == hash(t.replace())
 
 
+def test_load_config_equals_jax_load_config_field_for_field():
+    """load_config of the JAX package's default.yaml: the JAX load_config's
+    config field for field (the derived sensor extrinsics included), and the
+    port's default_config."""
+    from sdf_nmpc_tpu import default_config_dir
+    from sdf_nmpc_tpu.config import load_config as jload
+    from sdf_nmpc_tpu_torch.config import default_config, load_config
+
+    path = default_config_dir() / "default.yaml"
+    t = load_config(path)
+    assert t.to_dict() == jload(path).to_dict()
+    assert t == default_config()
+
+
+def test_load_config_without_pyyaml_names_it(monkeypatch):
+    """Where PyYAML does not import, load_config raises an ImportError that
+    names PyYAML and make_config."""
+    import builtins
+
+    from sdf_nmpc_tpu import default_config_dir
+    from sdf_nmpc_tpu_torch.config import load_config
+
+    real_import = builtins.__import__
+
+    def no_yaml(name, *args, **kwargs):
+        if name == "yaml":
+            raise ImportError("No module named 'yaml'")
+        return real_import(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", no_yaml)
+    with pytest.raises(ImportError, match="PyYAML.*make_config"):
+        load_config(default_config_dir() / "default.yaml")
+
+
 def test_replace_semantics_match():
     j, t = _cfgs()
     upd = dict(solver=dict(qp_iters=12, dtype="float64"), nn=dict(size_latent=16))

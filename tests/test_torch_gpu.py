@@ -629,3 +629,104 @@ def test_nan_in_one_scenario_stays_there(cuda_device, monkeypatch):
         assert torch.equal(getattr(res, name)[others], getattr(clean, name)[others]), name
     for name in ("X", "U"):
         assert torch.equal(getattr(res.state, name)[others], getattr(clean.state, name)[others])
+
+
+def _rule_holds(got, want, rule):
+    """chip_smoke.py's share / median / max rule of per-point deviations."""
+    thr, share_max, med_max, mx_max = rule
+    d = (got.double() - want.double()).abs().reshape(got.shape[0], -1).amax(-1)
+    share, med, mx = float((d > thr).double().mean()), float(d.median()), float(d.max())
+    print(f"share above {thr:g} {share:.2%}, median {med:.1e}, max {mx:.1e}")
+    return share <= share_max and med <= med_max and mx <= mx_max
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bf16", "mixed"])
+def test_sdf_fused_bf16_kernel_matches_plain_trained_net(cuda_device, mode):
+    """Kernel 2's bf16 and mixed routes (sdf_fused_bf16.cu) on the trained
+    4x256 net, 2,077 points (not a multiple of the 32-point tile), against
+    their own plain versions, value and gradient per point under
+    chip_smoke.py's SDF_BF16_RULE (share beyond 1e-3 at most 2% / 10%, the
+    median at most 1e-6, the max at most 2e-2 / 5e-2); mixed's value rows
+    are exact f32, within 2e-4 (tests/test_ops.py).  No other kernel-2 route
+    is launched."""
+    from sdf_nmpc_tpu_torch.nn.weights import load_prod_latents, load_prod_sdf
+    from sdf_nmpc_tpu_torch.ops.sdf_fused import PLAIN, pack_neural_df_params, sdf_value_grad
+
+    rules = ((1e-3, 0.02, 1e-6, 2e-2), (1e-3, 0.10, 1e-6, 5e-2))
+    rng = np.random.default_rng(47)
+    packed = pack_neural_df_params(load_prod_sdf(device=cuda_device))
+    lat = load_prod_latents()
+    P = 2077
+    pos = t32(rng.normal(size=(P, 3)) * 1.5).to(cuda_device)
+    latent = t32(lat[rng.integers(0, lat.shape[0], P)]).to(cuda_device)
+    names = ("sdf_fused", "sdf_fused_x3", "sdf_fused_bf16", "sdf_fused_mixed")
+    before = {n: _count(n) for n in names}
+    got = sdf_value_grad(packed, pos, latent, mode=mode)
+    assert {n: _count(n) - before[n] for n in names} == {
+        n: int(n == f"sdf_fused_{mode}") for n in names}
+    want = PLAIN[mode](packed, pos, latent)
+    for g, w, rule in zip(got, want, rules):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert _rule_holds(g, w, rule)
+    if mode == "mixed":
+        torch.testing.assert_close(got[0], want[0], atol=2e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bf16", "mixed"])
+@pytest.mark.parametrize("embed, act", [("oct", "sin"), ("none", "relu"), ("pos", "softplus")])
+def test_sdf_fused_bf16_kernel_small_random_net(cuda_device, mode, embed, act):
+    """The bf16 and mixed routes on a seeded 4x32 net (latent 16) per
+    activation, 45 points, against their plain versions: the median of each
+    output within 1e-6 and its max within 1e-2 (a one-ulp f32 difference
+    can flip a bf16 rounding; chip_smoke.py's SDF_BF16_RULE); the value of a
+    padded column (softplus(0) = log 2) must not leak through the zero
+    weight rows."""
+    from sdf_nmpc_tpu_torch.nn import NeuralDF
+    from sdf_nmpc_tpu_torch.ops.sdf_fused import PLAIN, pack_neural_df_params, sdf_value_grad
+
+    torch.manual_seed(7)
+    net = NeuralDF(size_latent=16, layer_sizes=(32, 32, 32, 32), embed=embed, act=act, w0=2.0,
+                   res="full").to(cuda_device)
+    packed = pack_neural_df_params(net)
+    rng = np.random.default_rng(53)
+    pos, latent = (t32(a).to(cuda_device) for a in (rng.normal(size=(45, 3)),
+                                                     rng.normal(size=(45, 16)) * 0.3))
+    n0 = _count(f"sdf_fused_{mode}")
+    got = sdf_value_grad(packed, pos, latent, mode=mode)
+    assert _count(f"sdf_fused_{mode}") == n0 + 1
+    for g, w in zip(got, PLAIN[mode](packed, pos, latent)):
+        d = (g - w).abs()
+        assert float(d.median()) <= 1e-6 and float(d.max()) <= 1e-2, (d.median(), d.max())
+
+
+@pytest.mark.gpu
+def test_sdf_fused_bf16_geometry(cuda_device):
+    """The bf16 and mixed kernels' launch: 512 threads (16 warps, 32 points),
+    180,224 and 212,992 B of shared memory, one block per SM."""
+    from sdf_nmpc_tpu_torch.ops.sdf_fused import sdf_fused_bf16_geometry
+
+    for mode, smem in (("bf16", 180224), ("mixed", 212992)):
+        geo = sdf_fused_bf16_geometry(mode)
+        print(f"{mode}: {geo}")
+        assert geo == {"threads": 512, "smem_bytes": smem, "blocks_per_sm": 1}
+
+
+@pytest.mark.gpu
+def test_config1_step_launches_kernels_1_5_6(cuda_device):
+    """BASELINE config 1 (enable_sdf off) on the card: one cold step on the
+    32 accuracy scenarios launches kernel 1 once and kernels 5 and 6 once
+    per IP iteration (20), no other kernel; every status OK and the u0
+    error against the oracle's nosdf_u0 within the CI gate (mean 2.5e-4,
+    max 2.5e-3)."""
+    from sdf_nmpc_tpu_torch.ops import _lib
+    from sdf_nmpc_tpu_torch.utils import accuracy
+
+    before = dict(_lib.launch_counts)
+    rep = accuracy.check_accuracy(device=cuda_device, variant="nosdf")
+    launched = {k: v - before[k] for k, v in _lib.launch_counts.items() if v != before[k]}
+    print(rep, launched)
+    assert launched == {"lin_y_sens": 1, "factor_solve": 20, "solve": 20}
+    assert rep["n_ok"] == rep["n_scen"] == 32
+    assert accuracy.ci_gate_ok(rep["u0_mean_err"], rep["u0_max_err"])

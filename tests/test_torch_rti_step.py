@@ -205,9 +205,8 @@ def test_unsupported_settings_raise():
 
 
 @pytest.mark.parametrize("over", [{"chol_impl": "xla"}, {"chol_impl": "custom"},
-                                  {"lin_impl": "xla"}, {"fused_sdf": False},
-                                  {"qp_data_bf16": True}, {"sdf_fused_dtype": "bf16"},
-                                  {"sdf_fused_dtype": "mixed"}])
+                                  {"lin_impl": "xla"}, {"qp_data_bf16": True},
+                                  {"qp_compute_dtype": "float64"}])
 def test_unported_knob_values_raise(over):
     """A solver knob the port reads either means what it means in the JAX
     package or raises and names ROADMAP.md: none is read and dropped."""
@@ -216,6 +215,18 @@ def test_unported_knob_values_raise(over):
     ocp, tc, _ = _narrow_ocp()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_rti_step(ocp, tc.replace(solver=over))
+
+
+@pytest.mark.parametrize("over", [{"fused_sdf": False}, {"sdf_fused_dtype": "bf16"},
+                                  {"sdf_fused_dtype": "mixed"}])
+def test_ported_knob_values_build(over):
+    """The SDF-row settings ported since the knob check came in build a step:
+    the autodiff row and kernel 2's bf16 routes (on the CPU the exact plain
+    version, tests/test_torch_sdf_fused.py)."""
+    from sdf_nmpc_tpu_torch.solver import make_rti_step
+
+    ocp, tc, _ = _narrow_ocp()
+    assert callable(make_rti_step(ocp, tc.replace(solver=over)))
 
 
 @pytest.mark.parametrize("over", [{"dual_warm_start": True}, {"ir_steps": 1},

@@ -130,11 +130,11 @@ def test_plain_x3_error_against_f64_autodiff(embed, act):
         assert e_x3 <= 4 * e_f32 + 1e-7, (name, e_x3, e_f32)
 
 
-@pytest.mark.parametrize("mode", ["f32", "f32x3"])
+@pytest.mark.parametrize("mode", ["f32", "f32x3", "bf16", "mixed"])
 def test_cpu_route_is_the_exact_plain_version(mode):
-    """On CPU tensors either mode returns the exact plain version bit for
-    bit, as the JAX package runs its autodiff path off the TPU; an unported
-    mode raises."""
+    """On CPU tensors every mode returns the exact plain version bit for
+    bit, as the JAX package runs its autodiff path off the TPU; a mode the
+    JAX package does not have raises."""
     from sdf_nmpc_tpu_torch.ops.sdf_fused import (
         pack_neural_df_params,
         sdf_value_grad,
@@ -148,7 +148,66 @@ def test_cpu_route_is_the_exact_plain_version(mode):
                          sdf_value_grad_plain(packed, pos, lat)):
         assert torch.equal(got, want)
     with pytest.raises(ValueError, match="mode"):
-        sdf_value_grad(packed, pos, lat, mode="bf16")
+        sdf_value_grad(packed, pos, lat, mode="f16")
+
+
+@pytest.mark.parametrize("mode", ["bf16", "mixed"])
+@pytest.mark.parametrize("embed,act", [("pos", "sin"), ("oct", "sin"), ("pos", "relu"),
+                                       ("ico", "softplus")])
+def test_plain_bf16_modes_match_pallas_kernel_interpret(mode, embed, act):
+    """The bf16 and mixed plain versions against the JAX kernel in the same
+    mode (interpret mode on the CPU, tile 8), f32, 64 points.  Direct, for
+    each output of bf16 products (bf16: value and gradient; mixed: the
+    gradient): the median within 1e-6 and the max within the JAX kernel's
+    own largest distance to the f64 oracle; mixed's value (exact f32 rows)
+    within 2e-4, the f32 test's tolerance.  A bf16 output is
+    held so because a one-ulp difference of an f32 sum can round a
+    next-layer input to the neighbouring bf16 value (2^-8 relative), which
+    sin(w0 z) carries to the output: measured up to 1.8e-3 (value) and
+    2.6e-2 (gradient) on one point, against the mode's own distance to f64
+    of 8e-3 and 6e-2.  And the plain version's largest distance to the f64
+    autodiff oracle (on the same f32 inputs and weights) at most 2 times the
+    JAX kernel's own (measured 1.0 times)."""
+    from sdf_nmpc_tpu.ops import make_fused_sdf, reference_value_and_grad
+    from sdf_nmpc_tpu_torch.ops.sdf_fused import PLAIN, pack_neural_df_params
+
+    module, variables = jax_net(embed=embed, act=act, w0=2.0, seed=1)
+    fused = jax.jit(make_fused_sdf(module, variables, tile=8, interpret=True, dtype=mode))
+    packed = pack_neural_df_params(port_net(module, variables, dtype=torch.float32))
+    rng = np.random.default_rng(29)
+    pos = rng.normal(size=(64, 3)).astype(np.float32)
+    lat = (rng.normal(size=(64, 16)) * 0.3).astype(np.float32)
+    v64 = jax.tree.map(lambda a: jnp.asarray(np.asarray(a, np.float32), jnp.float64), variables)
+    ref = [np.asarray(r) for r in jax.jit(reference_value_and_grad(module, v64))(
+        jnp.asarray(pos, jnp.float64), jnp.asarray(lat, jnp.float64))]
+    jax_out = [np.asarray(o, np.float64) for o in fused(jnp.asarray(pos), jnp.asarray(lat))]
+    plain = [o.double().numpy() for o in PLAIN[mode](packed, t32(pos), t32(lat))]
+    for i, (p, j, r) in enumerate(zip(plain, jax_out, ref)):
+        d, own = np.abs(p - j), np.abs(j - r).max()
+        if mode == "mixed" and i == 0:
+            np.testing.assert_allclose(p, j, atol=2e-4)
+        else:
+            assert np.median(d) <= 1e-6 and d.max() <= own, (np.median(d), d.max(), own)
+        assert np.abs(p - r).max() <= 2 * own
+
+
+def test_bf16_round_is_nearest_even():
+    """bf16_round against a float64 reference: the nearest multiple of
+    2^(e - 7), ties to the even neighbour, over random magnitudes and the
+    exact ties; its low 16 bits are zero."""
+    from sdf_nmpc_tpu_torch.ops.sdf_fused import bf16_round
+
+    x = RNG.normal(size=4000) * 10.0 ** RNG.uniform(-6, 6, size=4000)
+    m, e = np.frexp(x.astype(np.float32).astype(np.float64))  # |m| in [0.5, 1)
+    ties = np.ldexp(np.sign(m) * (np.floor(np.abs(m) * 2 ** 8) + 0.5) / 2 ** 8, e)
+    x = np.concatenate([x, ties]).astype(np.float32)
+    m, e = np.frexp(x.astype(np.float64))
+    q = np.abs(m) * 2 ** 8
+    r = np.where(q - np.floor(q) == 0.5, 2 * np.round(q / 2), np.floor(q + 0.5))
+    want = np.ldexp(np.sign(m) * r / 2 ** 8, e)
+    got = bf16_round(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy().astype(np.float64), want)
+    assert not (got.view(torch.int32) & 0xFFFF).any()
 
 
 def test_tf32_round_is_nearest_ties_away():
