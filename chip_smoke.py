@@ -53,7 +53,7 @@ failure raises and exits non-zero before the result line:
    by its four routes (the f32x3 route's bound at the TF32 tensor-core
    peak, three passes; bf16's at the bf16 tensor-core peak; mixed's the
    longer of its primal rows at the FP32 peak and its tangent rows at the
-   bf16 peak; the tensor-core routes' launch geometry and registers); for
+   bf16 peak; each route's launch geometry and registers); for
    kernels 1 and 3 their launch
    geometry (threads, shared bytes, resident blocks per SM) and ptxas
    registers beside their ms; for kernel 4 also each launch's time (warm
@@ -105,7 +105,7 @@ The last lines are the ``kernels`` JSON (all nine kernels, kernel 2 as one
 row per route, each with its per-launch times ``launch_ms``; the rows of
 kernels 1, 3 and 9 carry each model's numbers under ``per_model``, and at
 top level att's (props' for kernel 9); kernel 4's row ``launch_k_s`` and
-``geometry``, kernel 2's tensor-core rows (f32x3, bf16, mixed) and the
+``geometry``, kernel 2's rows (f32, f32x3, bf16, mixed) and the
 rows of kernels 1, 3, 5, 7 and 8 their ``geometry``; the ``launches`` of
 kernel 2's f32, bf16 and mixed rows come from the runs of phase 6 that
 took those routes),
@@ -119,12 +119,14 @@ print no result line):
     python3 chip_smoke.py --qp-builds DIR [DIR ...]
     python3 chip_smoke.py --condense-builds DIR [DIR ...]
     python3 chip_smoke.py --lin-builds DIR [DIR ...]
-        kernel 4 (kernel 2's f32x3 route, kernels 5-8, kernel 3, kernel 1)
-        built from each DIR's ip_phase.cu (sdf_fused_x3.cu, qp_solve.cu,
-        condense.cu, lin_y_sens.cu) and the headers beside it against the
-        package's build, on the launches of one steady step of the fused main
-        path (for kernels 5-8 the composed one; kernel 3 on att's and props',
-        kernel 1 on att's, acc's and att_tau's): each launch's time, the
+        kernel 4 (kernel 2's f32, f32x3, bf16 and mixed kernels, kernels 5-8,
+        kernel 3, kernel 1) built from each DIR's ip_phase.cu (sdf_fused.cu,
+        sdf_fused_x3.cu and sdf_fused_bf16.cu, one after the other;
+        qp_solve.cu, condense.cu, lin_y_sens.cu) and the headers beside it
+        against the package's build, on the launches of one steady step of
+        the fused main path (kernel 2's kernels each under its route; for
+        kernels 5-8 the composed path; kernel 3 on att's and props', kernel 1
+        on att's, acc's and att_tau's): each launch's time, the
         builds interleaved round by round, each build's outputs against the
         package's and every other build's, bit for bit (per output), and
         (kernel 2) against the f64 plain version;
@@ -1398,10 +1400,11 @@ def phase_kernel_numbers(counts, t_step, steady, state, inputs, card):
             geo = lin_geometry_row if row["name"] == "lin_y_sens" else condense_geometry_row
             row["geometry"] = geo(calls[row["name"]][0], card)
             log(f"  {row['name']} {row['ms']:.4f} ms/step")
-    for row in rows:  # kernel 2's tensor-core routes: launch geometry and ptxas registers
-        if row["name"] in ("sdf_fused_x3", *BF16_ROUTES):
+    for row in rows:  # kernel 2's routes: launch geometry and ptxas registers
+        if row["name"] in SDF_ROUTES:
             name = row["name"]
-            row["geometry"] = (sdf_fused.sdf_fused_x3_geometry() if name == "sdf_fused_x3" else
+            row["geometry"] = (sdf_fused.sdf_fused_geometry() if name == "sdf_fused" else
+                               sdf_fused.sdf_fused_x3_geometry() if name == "sdf_fused_x3" else
                                sdf_fused.sdf_fused_bf16_geometry(SDF_ROUTES[name]))
             regs = next(iter(ptxas_report(f"{name}_kernel").values()), {})
             row["geometry"].update(regs)
@@ -1969,11 +1972,16 @@ def phase_other_rows(dev, card) -> dict:
 
 
 # source -> (its C functions, the kernels timed, the models whose steady
-# step gives the launches) for --ip-builds, --sdf-builds, --qp-builds,
-# --condense-builds and --lin-builds; a function a tree lacks is not bound
+# step gives the launches) for --ip-builds, --sdf-builds (kernel 2's three
+# sources), --qp-builds, --condense-builds and --lin-builds; a function a
+# tree lacks is not bound
 VARIANTS = {"ip_phase.cu": (("ip_phase_launch", "ip_phase_geometry"), ("ip_phase",), ("att",)),
+            "sdf_fused.cu": (("sdf_fused_launch", "sdf_fused_geometry"), ("sdf_fused",),
+                             ("att",)),
             "sdf_fused_x3.cu": (("sdf_fused_x3_launch", "sdf_fused_x3_geometry"),
                                 ("sdf_fused_x3",), ("att",)),
+            "sdf_fused_bf16.cu": (("sdf_fused_bf16_launch", "sdf_fused_bf16_geometry"),
+                                  tuple(BF16_ROUTES), ("att",)),
             "qp_solve.cu": (("factor_solve_launch", "solve_launch", "stiff_factor_solve_launch",
                              "stiff_resolve_launch"), tuple(COMPOSED_KERNELS), ("att",)),
             "condense.cu": (("condense_launch", "condense_geometry"), ("condense",),
@@ -2001,13 +2009,23 @@ def build_variant(src_dir: str, source: str, out_dir) -> str:
     return str(lib)
 
 
+def build_over(kernel):
+    """The solver overrides of the main path whose steady step gives
+    ``kernel``'s launches to --*-builds: the composed path for kernels 5-8,
+    kernel 2's route for its f32, bf16 and mixed kernels, else the defaults."""
+    if kernel in COMPOSED_KERNELS:
+        return DWS
+    return {"sdf_fused": SDF_F32, **BF16_ROUTES}.get(kernel)
+
+
 def phase_builds(dev, card, source, dirs, rounds=3):
-    """The kernels of ``source`` (kernel 4, kernel 2's f32x3 route, kernels
-    5-8, kernel 3 or kernel 1) built from other source trees against the
-    package's build, on their launches of one steady step of the main path
-    that runs them (B=MAIN_B; the composed path for kernels 5-8; kernel 3 on
-    att's and props' fused paths, kernel 1 on att's, acc's and att_tau's):
-    each launch's time, the builds interleaved round by round, whether each
+    """The kernels of ``source`` (kernel 4, one of kernel 2's three sources,
+    kernels 5-8, kernel 3 or kernel 1) built from other source trees against
+    the package's build, on their launches of one steady step of the main
+    path that runs them (B=MAIN_B; build_over: the composed path for kernels
+    5-8, kernel 2's kernels each under its route; kernel 3 on att's and
+    props' fused paths, kernel 1 on att's, acc's and att_tau's): each
+    launch's time, the builds interleaved round by round, whether each
     build's outputs equal the package's bit for bit, and for kernel 2 how far
     its value and gradient lie from the f64 plain version.  A tree must keep
     the package's C interface and host-side layout."""
@@ -2035,29 +2053,35 @@ def phase_builds(dev, card, source, dirs, rounds=3):
         return [float(d[0].max()), float(d[0].mean()), float(d[1].max()), float(d[1].mean())]
 
     runs = {"ip_phase": ("ip_phase", lambda a: ip_kernel.ip_phase(*a)),
-            "sdf_fused_x3": ("sdf", lambda a: sdf_fused.sdf_value_grad(*a, mode="f32x3")),
+            **{name: ("sdf", lambda a, _m=mode: sdf_fused.sdf_value_grad(*a, mode=_m))
+               for name, mode in SDF_ROUTES.items()},
             **{name: (name, lambda a, _n=name: getattr(qp_kernels, _n)(*a))
                for name in COMPOSED_KERNELS},
             "condense": ("condense", lambda a: condense_kernel.condense(*a)),
             "lin_y_sens": ("lin_y_sens", lambda a: lin_kernels.lin_y_sens(*a))}
-    over = DWS if source == "qp_solve.cu" else None
     calls = {kernel: [] for kernel in kernels}
     for model in models:
-        cfg, ocp, layout, _ = accuracy.build_setup(
-            device=dev, solver_over=over, model=None if model == "att" else model)
-        inputs = bench_inputs(ocp, cfg, layout, MAIN_B, SEED, dev)
-        state = make_rti_step(ocp, cfg, budget="cold", with_evals=False)(
-            init_state(ocp, inputs.x0, dual_warm_start=over is DWS), inputs).state
-        with Capture() as cap:
-            make_rti_step(ocp, cfg, budget="steady", with_evals=False)(state, inputs)
-        for kernel in kernels:
-            calls[kernel] += cap.args(runs[kernel][0])
-        del inputs, state, cap
+        for over in {str(build_over(k)): build_over(k) for k in kernels}.values():
+            cfg, ocp, layout, _ = accuracy.build_setup(
+                device=dev, solver_over=over, model=None if model == "att" else model)
+            inputs = bench_inputs(ocp, cfg, layout, MAIN_B, SEED, dev)
+            state = make_rti_step(ocp, cfg, budget="cold", with_evals=False)(
+                init_state(ocp, inputs.x0, dual_warm_start=over is DWS), inputs).state
+            with Capture() as cap:
+                make_rti_step(ocp, cfg, budget="steady", with_evals=False)(state, inputs)
+            for kernel in kernels:
+                if build_over(kernel) == over:
+                    calls[kernel] += cap.args(runs[kernel][0])
+            del inputs, state, cap
     log(f"{source} builds: the launches of one steady step of {', '.join(models)} at "
-        f"B={MAIN_B}")
+        f"B={MAIN_B}: " + ", ".join(f"{k} under {build_over(k) or 'the defaults'}"
+                                    for k in kernels))
     libs = {"package": _lib.library()}
     for i, d in enumerate(dirs):
-        lib = ctypes.CDLL(build_variant(d, source, _lib.BUILD / f"variant-{os.getpid()}-{i}"))
+        # one directory per source and tree: dlopen of a path already loaded
+        # would return the library loaded first
+        out = _lib.BUILD / f"variant-{os.getpid()}-{source.split('.')[0]}-{i}"
+        lib = ctypes.CDLL(build_variant(d, source, out))
         for name in functions:
             fn = getattr(lib, name, None)
             if fn is not None:
@@ -2101,7 +2125,7 @@ def phase_builds(dev, card, source, dirs, rounds=3):
                 rep = report[name][kernel] = {"launch_ms": times[name][kernel],
                                               "bitwise_equal": same, "max_abs_diff": diff,
                                               "bitwise_equal_by_output": per_out}
-                if kernel == "sdf_fused_x3":  # value and gradient against the f64 plain version
+                if kernel in SDF_ROUTES:  # value and gradient against the f64 plain version
                     errs = [vs_f64(o, a) for o, a in zip(outs, calls[kernel])]
                     rep["f64_err"] = errs
                     log(f"{kernel} build {name}: against f64, value max/mean "
@@ -2112,6 +2136,12 @@ def phase_builds(dev, card, source, dirs, rounds=3):
                                geometry=[ip_kernel.ip_phase_geometry(
                                    a[0][0].shape[-1], a[0][1].shape[1], a[2])
                                    for a in calls[kernel]])
+                geo_fn = {"sdf_fused_mixed": "sdf_fused_bf16"}.get(kernel, kernel) + "_geometry"
+                if kernel in SDF_ROUTES and hasattr(lib, geo_fn):
+                    rep["geometry"] = (
+                        sdf_fused.sdf_fused_bf16_geometry(SDF_ROUTES[kernel])
+                        if kernel in BF16_ROUTES else _lib.geometry(geo_fn))
+                    log(f"{kernel} build {name}: geometry {rep['geometry']}")
                 if kernel in ("condense", "lin_y_sens") and hasattr(lib, f"{kernel}_geometry"):
                     geo = (lambda a: condense_kernel.condense_geometry(
                         a[0].shape[1], a[0].shape[2], a[1].shape[-1], a[4].shape[2],
@@ -2144,7 +2174,8 @@ def main(argv=None) -> int:
                     help="time kernel 4 built from each DIR against the package's build, then "
                          "stop")
     ap.add_argument("--sdf-builds", nargs="+", metavar="DIR",
-                    help="time kernel 2's f32x3 route built from each DIR against the "
+                    help="time kernel 2's f32, f32x3, bf16 and mixed kernels built from each "
+                         "DIR's sdf_fused.cu, sdf_fused_x3.cu and sdf_fused_bf16.cu against the "
                          "package's build, then stop")
     ap.add_argument("--qp-builds", nargs="+", metavar="DIR",
                     help="time kernels 5-8 built from each DIR's qp_solve.cu against the "
@@ -2163,11 +2194,14 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     phase_build()
-    for source, dirs in (("ip_phase.cu", args.ip_builds), ("sdf_fused_x3.cu", args.sdf_builds),
-                         ("qp_solve.cu", args.qp_builds), ("condense.cu", args.condense_builds),
-                         ("lin_y_sens.cu", args.lin_builds)):
+    sdf_sources = ("sdf_fused.cu", "sdf_fused_x3.cu", "sdf_fused_bf16.cu")
+    for sources, dirs in ((("ip_phase.cu",), args.ip_builds), (sdf_sources, args.sdf_builds),
+                          (("qp_solve.cu",), args.qp_builds),
+                          (("condense.cu",), args.condense_builds),
+                          (("lin_y_sens.cu",), args.lin_builds)):
         if dirs:
-            phase_builds(dev, card, source, dirs)
+            for source in sources:
+                phase_builds(dev, card, source, dirs)
             return 0
     if args.composed:
         _, t_step, steady, state, inputs = phase_main_path(

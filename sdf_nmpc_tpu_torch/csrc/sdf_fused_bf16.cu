@@ -51,9 +51,11 @@
 // of the same 16 points (4 N tiles), so act' of an output sits in the same
 // thread as the three tangent outputs it scales.  A tangent row's latent
 // columns are zero, so latent chunks multiply the primal rows alone ('mixed':
-// no tensor-core work at all).  'mixed''s primal FMAs: thread t owns points
-// 2 (t / 32), +1 and columns t % 32 + 32 j, j < 8, and leaves the layer's
-// z_p in the primal rows of the activations for the epilogue.  The head
+// no tensor-core work at all).  'mixed''s primal FMAs run on ffma_tile.cuh's
+// register tile in the same warps, over the same points and columns (lane l:
+// 4 points l % 4 + 4 i, 4 columns 4 (l / 4) + e; see mixed_chunk), their
+// 4-deep blocks interleaved with the tangent groups' mma.sync, and leave the
+// layer's z_p in the primal rows of the activations for the epilogue.  The head
 // reduces each warp's 32 columns with shuffles and the 8 column groups
 // through shared memory.
 //
@@ -63,6 +65,7 @@
 
 #include "bf16.cuh"
 #include "common.cuh"
+#include "ffma_tile.cuh"
 #include "tf32.cuh"  // tf32::copy16, copy4, commit, wait: the ring's cp.async copies
 
 namespace {
@@ -78,7 +81,6 @@ constexpr int HS = HID + 8;   // activation row stride (words; 8 mod 32)
 constexpr int XS = KC + 8;    // input-chunk row stride (8 mod 32)
 constexpr int WB = HID * KC / 2;  // words of a bf16 weight chunk
 constexpr int NSTAGE = 2;
-constexpr int PJ = HID / 32;  // 'mixed' primal FMAs: columns per thread
 
 template <bool MIXED>
 struct Layout {
@@ -175,22 +177,27 @@ __device__ __forceinline__ void load_chunk(const Bf16Args& a, int c, int p0, flo
   }
 }
 
-// acc[g][j] += bf16(rows(g)) (16 x KC from A: group g at A + g * gstride,
-// row stride lda) times the chunk's bf16 weight columns of N tile j, for the
-// row groups G0 .. G0 + NG - 1.  The chunk wb holds per output column n 8
-// words: word 2t = rows (2t, 2t + 1), word 2t + 1 = rows (2t + 8, 2t + 9),
-// so that a lane's B fragment is one 8-byte load.
-template <int G0, int NG>
-__device__ __forceinline__ void mma_chunk(float (&acc)[4][NJ][4], const float* A, int lda,
-                                          int gstride, const uint32_t* wb, int n0) {
+// A lane's B fragments of the chunk's N tiles j (NJ of 8 columns from n0):
+// the chunk wb holds per output column n 8 words: word 2t = rows (2t, 2t +
+// 1), word 2t + 1 = rows (2t + 8, 2t + 9), so that a fragment is one 8-byte
+// load.
+__device__ __forceinline__ void load_b(uint32_t (&b)[NJ][2], const uint32_t* wb, int n0) {
   const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
-  uint32_t b[NJ][2];
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     const uint2 v = *reinterpret_cast<const uint2*>(wb + (n0 + 8 * j + g8) * 8 + 2 * t4);
     b[j][0] = v.x;
     b[j][1] = v.y;
   }
+}
+
+// acc[g][j] += bf16(rows(g)) (16 x KC from A: group g at A + g * gstride,
+// row stride lda) times the chunk's bf16 weight columns of N tile j (the
+// fragments b), for the row groups G0 .. G0 + NG - 1.
+template <int G0, int NG>
+__device__ __forceinline__ void mma_groups(float (&acc)[4][NJ][4], const float* A, int lda,
+                                           int gstride, const uint32_t (&b)[NJ][2]) {
+  const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int g = G0; g < G0 + NG; ++g) {
     const float* r0 = A + g * gstride + g8 * lda + 2 * t4;
@@ -210,22 +217,49 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[4][NJ][4], const float* A
   }
 }
 
-// 'mixed': pacc[pp][j] += sum_k A[2 w + pp][k] W[k][t % 32 + 32 j] over the
-// chunk's KC rows in IEEE f32 (w the warp, A the primal rows with stride lda,
-// W the chunk's f32 rows).  A is read as a broadcast, W row by row.
-__device__ __forceinline__ void primal_chunk(float (&pacc)[2][PJ], const float* A, int lda,
-                                             const float* W) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* a0 = A + 2 * warp * lda;
-#pragma unroll 4
-  for (int k = 0; k < KC; ++k) {
-    const float x0 = a0[k], x1 = a0[lda + k];
-#pragma unroll
-    for (int j = 0; j < PJ; ++j) {
-      const float w = W[k * HID + lane + 32 * j];
-      pacc[0][j] = fmaf(x0, w, pacc[0][j]);
-      pacc[1][j] = fmaf(x1, w, pacc[1][j]);
-    }
+// 'bf16': the chunk's products of row groups G0 .. G0 + NG - 1.
+template <int G0, int NG>
+__device__ __forceinline__ void mma_chunk(float (&acc)[4][NJ][4], const float* A, int lda,
+                                          int gstride, const uint32_t* wb, int n0) {
+  uint32_t b[NJ][2];
+  load_b(b, wb, n0);
+  mma_groups<G0, NG>(acc, A, lda, gstride, b);
+}
+
+// 'mixed': the chunk's products of a warp (point half ph, columns n0 ..
+// n0 + 31).  The primal rows' IEEE FMAs run on ffma_tile.cuh's tile: lane l
+// owns points 16 ph + l % 4 + 4 i (i < 4) and columns n0 + 4 (l / 4) + e
+// (e < 4), pacc[i][e], read as 16-byte loads: four k of a row (rows l % 4
+// apart lie 8 banks apart at both strides, HS and XS) and four columns of
+// the chunk's f32 weights (the warp's 32 columns, 128 contiguous bytes), 8
+// shared-memory wavefronts per 64 FFMA warp-instructions.  With TANGENTS
+// the three tangent row groups' bf16 mma.sync come between its 4-deep
+// blocks, one group after each of the first three: measured on the H100
+// 80GB HBM3 at 700 W (chip_smoke.py --sdf-builds), faster in each of six
+// rounds than all FFMAs first (by 0.7-3.6%), with 24 B of spills against 44.
+// src: the chunk's rows (row stride LDA, the primal rows first, group g at
+// src + g TP LDA).
+template <int LDA, bool TANGENTS>
+__device__ __forceinline__ void mixed_chunk(float (&acc)[4][NJ][4], float (&pacc)[4][4],
+                                            const float* src, const float* wf,
+                                            const uint32_t* wb, int ph, int n0) {
+  const int lane = threadIdx.x & 31;
+  const ffma_tile::RowMajor<4, LDA, 4> rows{src + (ph * 16 + (lane & 3)) * LDA};
+  const float* w = wf + n0 + 4 * (lane >> 2);
+  static_assert(KC == 16, "four 4-deep blocks, three tangent groups between them");
+  if constexpr (TANGENTS) {
+    const float* tile = src + ph * 16 * LDA;
+    uint32_t b[NJ][2];
+    load_b(b, wb, n0);
+    ffma_tile::block4<HID>(pacc, rows, w, 0);
+    mma_groups<1, 1>(acc, tile, LDA, TP * LDA, b);
+    ffma_tile::block4<HID>(pacc, rows, w, 4);
+    mma_groups<2, 1>(acc, tile, LDA, TP * LDA, b);
+    ffma_tile::block4<HID>(pacc, rows, w, 8);
+    mma_groups<3, 1>(acc, tile, LDA, TP * LDA, b);
+    ffma_tile::block4<HID>(pacc, rows, w, 12);
+  } else {
+    ffma_tile::chunk<KC, HID>(pacc, rows, w);
   }
 }
 
@@ -244,7 +278,7 @@ __device__ __forceinline__ void run(const Bf16Args& a) {
   const int n_chunks = l3x + nx + HID / KC;
 
   float acc[4][NJ][4];
-  float pacc[2][PJ];
+  float pacc[4][4];  // 'mixed': primal rows (see mixed_chunk)
 #pragma unroll
   for (int g = 0; g < 4; ++g)
 #pragma unroll
@@ -252,9 +286,9 @@ __device__ __forceinline__ void run(const Bf16Args& a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[g][j][e] = 0.f;
 #pragma unroll
-  for (int pp = 0; pp < 2; ++pp)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < PJ; ++j) pacc[pp][j] = 0.f;
+    for (int e = 0; e < 4; ++e) pacc[i][e] = 0.f;
 
   load_chunk<MIXED>(a, 0, p0, ring);
   tf32::commit();
@@ -273,8 +307,12 @@ __device__ __forceinline__ void run(const Bf16Args& a) {
     const int lda = ch.kind == 0 ? HS : XS;
     const float* tile = src + ph * 16 * lda;
     if constexpr (MIXED) {
-      primal_chunk(pacc, src, lda, st + WB);
-      if (ch.kind != 2) mma_chunk<1, 3>(acc, tile, lda, TP * lda, wb, n0);
+      if (ch.kind == 0)
+        mixed_chunk<HS, true>(acc, pacc, src, st + WB, wb, ph, n0);
+      else if (ch.kind == 1)
+        mixed_chunk<XS, true>(acc, pacc, src, st + WB, wb, ph, n0);
+      else
+        mixed_chunk<XS, false>(acc, pacc, src, st + WB, wb, ph, n0);
     } else {
       if (ch.kind != 2)
         mma_chunk<0, 4>(acc, tile, lda, TP * lda, wb, n0);
@@ -288,12 +326,13 @@ __device__ __forceinline__ void run(const Bf16Args& a) {
     if constexpr (MIXED) {
       // z_p of the layer into the primal rows, where the epilogue reads it
 #pragma unroll
-      for (int pp = 0; pp < 2; ++pp)
+      for (int i = 0; i < 4; ++i) {
+        *reinterpret_cast<float4*>(Hs + (ph * 16 + (lane & 3) + 4 * i) * HS + n0 +
+                                   4 * (lane >> 2)) =
+            make_float4(pacc[i][0], pacc[i][1], pacc[i][2], pacc[i][3]);
 #pragma unroll
-        for (int j = 0; j < PJ; ++j) {
-          Hs[(2 * warp + pp) * HS + lane + 32 * j] = pacc[pp][j];
-          pacc[pp][j] = 0.f;
-        }
+        for (int e = 0; e < 4; ++e) pacc[i][e] = 0.f;
+      }
       __syncthreads();
     }
     // z_p of output (point pt, column col) of this thread, before the bias

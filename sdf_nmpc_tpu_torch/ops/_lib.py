@@ -48,6 +48,7 @@ _SIGNATURES = {
     "lin_y_sens_geometry": [_I] + [_P] * 3,
     "erk4_sens_launch": [_P] * 6 + [_I, _I, _P, _I, _P],
     "sdf_fused_launch": [_P] * 15 + [_I] * 5 + [_F, _P],
+    "sdf_fused_geometry": [_P] * 3,
     "sdf_fused_x3_launch": [_P] * 9 + [_I] * 6 + [_F, _P],
     "sdf_fused_x3_geometry": [_P] * 3,
     # (emb, demb, lat, Wb, Wf, bias, w5, w5r, b5, df, grad, P, nemb, L, nxe, nxl,

@@ -46,8 +46,7 @@ from . import _lib
 MODES = ("f32", "f32x3", "bf16", "mixed")
 _ACT_CODES = {"sin": 0, "relu": 1, "softplus": 2}
 _HID = 256  # the kernels' padded hidden width
-_KC = 32  # sdf_fused.cu's weight-chunk rows
-_KC3 = 16  # sdf_fused_x3.cu's chunk rows (weights) and columns (inputs)
+_KC = 16  # every kernel's chunk rows (weights) and columns (inputs)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -204,9 +203,10 @@ PLAIN = {"f32": sdf_value_grad_plain, "f32x3": sdf_value_grad_x3_plain,
 
 
 def _kernel_weights(packed) -> dict:
-    """Weights zero-padded to the kernel's layout (cached on ``packed``):
-    hidden widths to 256, the input width to a multiple of 32, and W3's rows
-    split as [h (256) | input rows (in1p)].  Zero pads are inert."""
+    """sdf_fused.cu's weights, zero-padded (cached on ``packed``): hidden
+    widths to 256, the input width to a multiple of the chunk's 16 columns,
+    and W3's rows split as [h (256) | input rows (in1p)].  Zero pads are
+    inert."""
     if "_kernel" in packed:
         return packed["_kernel"]
     if any(s > _HID for s in packed["sizes"]):
@@ -260,6 +260,12 @@ def _sdf_value_grad_cuda(packed, pos, latent):
     return df, grad
 
 
+def sdf_fused_geometry() -> dict:
+    """The f32 kernel's launch on the current card: threads per block,
+    dynamic shared bytes per block, resident blocks per SM."""
+    return _lib.geometry("sdf_fused_geometry")
+
+
 def _chunk_sequence(packed):
     """(W (16 n_chunks, 256), nxe, nxl): the four dense layers as the tensor-
     core kernels read them, one sequence of 16-row chunks zero-padded to width
@@ -268,7 +274,7 @@ def _chunk_sequence(packed):
     if any(s > _HID for s in packed["sizes"]):
         raise ValueError(f"the sdf kernel takes hidden widths <= {_HID}, got {packed['sizes']}")
     nemb, L, s1 = packed["nemb"], packed["L"], packed["sizes"][1]
-    ke, kl = _round_up(nemb, _KC3), _round_up(L, _KC3)
+    ke, kl = _round_up(nemb, _KC), _round_up(L, _KC)
     dev = packed["W1"].device
 
     def block(w, rows):
@@ -282,7 +288,7 @@ def _chunk_sequence(packed):
     W = torch.cat([inputs(packed["W1"]), block(packed["W2"], _HID),
                    block(packed["W3"][:s1], _HID), inputs(packed["W3"][s1:]),
                    block(packed["W4"], _HID)])
-    return W, ke // _KC3, kl // _KC3
+    return W, ke // _KC, kl // _KC
 
 
 def _head_weights(packed) -> dict:
@@ -335,7 +341,7 @@ def _bf16_weights(packed) -> dict:
     if "_bf16" in packed:
         return packed["_bf16"]
     W, nxe, nxl = _chunk_sequence(packed)
-    Wf = W.view(-1, _KC3, _HID)
+    Wf = W.view(-1, _KC, _HID)
     Wb = Wf.to(torch.bfloat16)[:, list(_BF16_ROWS)].transpose(1, 2).contiguous()
     head = _head_weights(packed)
     kw = dict(Wb=Wb, Wf=Wf.contiguous(), nxe=nxe, nxl=nxl, w5r=bf16_round(head["w5"]), **head)

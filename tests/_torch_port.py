@@ -101,6 +101,7 @@ CUDA_RUNTIME_H = r"""
 struct alignas(16) float4 {
   float x, y, z, w;
 };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
@@ -209,6 +210,10 @@ ASYNC_COPY_H = """
 namespace acp {
 inline void copy4(float* dst, const float* src) { *dst = *src; }
 inline void copy16(float* dst, const float* src) { std::memcpy(dst, src, 16); }
+inline void copy4(float* dst, const float* src, bool valid) { *dst = valid ? *src : 0.f; }
+inline void commit() {}
+template <int N>
+inline void wait() {}
 inline void wait_all() {}
 }  // namespace acp
 """

@@ -357,6 +357,48 @@ def test_lin_y_sens_kernel_matches_plain_families(cuda_device, model):
         assert e_k <= max(tol, 2 * e_p), name
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("embed, act", [("oct", "sin"), ("none", "relu"), ("pos", "softplus")])
+def test_sdf_fused_kernel_small_random_net(cuda_device, embed, act):
+    """The f32 route (sdf_fused.cu) on a seeded 4x32 net (latent 16,
+    res='full') per activation, 45 points (two 16-point tiles and a partial
+    one), against the exact plain version: value 2e-4, gradient 2e-3
+    (tests/test_ops.py); the value of a padded column (softplus(0) = log 2)
+    must not leak through the zero weight rows."""
+    from sdf_nmpc_tpu_torch.nn import NeuralDF
+    from sdf_nmpc_tpu_torch.ops.sdf_fused import (
+        pack_neural_df_params,
+        sdf_value_grad,
+        sdf_value_grad_plain,
+    )
+
+    torch.manual_seed(7)
+    net = NeuralDF(size_latent=16, layer_sizes=(32, 32, 32, 32), embed=embed, act=act, w0=2.0,
+                   res="full").to(cuda_device)
+    packed = pack_neural_df_params(net)
+    rng = np.random.default_rng(59)
+    pos, latent = (t32(a).to(cuda_device) for a in (rng.normal(size=(45, 3)),
+                                                     rng.normal(size=(45, 16)) * 0.3))
+    n0 = _count("sdf_fused")
+    got = sdf_value_grad(packed, pos, latent, mode="f32")
+    assert _count("sdf_fused") == n0 + 1
+    for g, w, tol in zip(got, sdf_value_grad_plain(packed, pos, latent), (2e-4, 2e-3)):
+        torch.testing.assert_close(g, w, atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+def test_sdf_fused_geometry(cuda_device):
+    """The f32 kernel's launch: 256 threads (8 warps, 16 points), 111,104 B
+    of shared memory (activations 256 x 68 words, 2 ring stages of a 16 x
+    256 weight chunk and 16 x 68 input words), two blocks per SM."""
+    from sdf_nmpc_tpu_torch.ops.sdf_fused import sdf_fused_geometry
+
+    geo = sdf_fused_geometry()
+    print(f"f32: {geo}")
+    assert geo == {"threads": 256, "smem_bytes": 4 * (256 * 68 + 2 * (16 * 256 + 16 * 68)),
+                   "blocks_per_sm": 2}
+
+
 def max_abs(a, b):
     return float((a.double() - b.double()).abs().max())
 

@@ -55,15 +55,16 @@ def test_plain_f64_matches_jax_autodiff(embed, act):
 
 
 def test_kernel_weight_layout_is_inert_padding():
-    """The CUDA kernel's padded weights (hidden width 256, W3 rows split as
-    [h | input]) reproduce the unpadded products exactly."""
+    """The CUDA kernel's padded weights (hidden width 256, the input width
+    padded to its 16-column chunks, W3 rows split as [h | input]) reproduce
+    the unpadded products exactly."""
     from sdf_nmpc_tpu_torch.ops.sdf_fused import _kernel_weights, pack_neural_df_params
 
     module, variables = jax_net(embed="oct", act="sin", w0=2.0, seed=1)
     packed = pack_neural_df_params(port_net(module, variables, dtype=torch.float32))
     kw = _kernel_weights(packed)
     in1, in1p, s1 = packed["in1"], kw["in1p"], packed["sizes"][1]
-    assert in1p % 32 == 0 and kw["W3"].shape == (256 + in1p, 256)
+    assert in1p % 16 == 0 and in1p - in1 < 16 and kw["W3"].shape == (256 + in1p, 256)
     h = torch.randn(5, s1)
     x0 = torch.randn(5, in1)
     want = torch.cat([h, x0], -1) @ packed["W3"]
