@@ -81,7 +81,7 @@ failure raises and exits non-zero before the result line:
    under both kernel-2 routes;
 13. main path, per family: as phase 6 at B=8192, its busy share, and
    kernel 9's (or 1's) and kernel 3's time, bound and plain time on a
-   steady step's inputs (kernels 1 and 3 with their geometry and ptxas
+   steady step's inputs (each with its launch geometry and ptxas
    registers), beside the time of the torch.func residual rows (kernel 9
    only);
 14. the ``Nmpc`` controller at B=1 on props, default settings, 15 ticks:
@@ -106,7 +106,7 @@ row per route, each with its per-launch times ``launch_ms``; the rows of
 kernels 1, 3 and 9 carry each model's numbers under ``per_model``, and at
 top level att's (props' for kernel 9); kernel 4's row ``launch_k_s`` and
 ``geometry``, kernel 2's rows (f32, f32x3, bf16, mixed) and the
-rows of kernels 1, 3, 5, 7 and 8 their ``geometry``; the ``launches`` of
+rows of kernels 1, 3, 5, 7, 8 and 9 their ``geometry``; the ``launches`` of
 kernel 2's f32, bf16 and mixed rows come from the runs of phase 6 that
 took those routes),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -119,17 +119,20 @@ print no result line):
     python3 chip_smoke.py --qp-builds DIR [DIR ...]
     python3 chip_smoke.py --condense-builds DIR [DIR ...]
     python3 chip_smoke.py --lin-builds DIR [DIR ...]
+    python3 chip_smoke.py --erk4-builds DIR [DIR ...]
         kernel 4 (kernel 2's f32, f32x3, bf16 and mixed kernels, kernels 5-8,
-        kernel 3, kernel 1) built from each DIR's ip_phase.cu (sdf_fused.cu,
-        sdf_fused_x3.cu and sdf_fused_bf16.cu, one after the other;
-        qp_solve.cu, condense.cu, lin_y_sens.cu) and the headers beside it
-        against the package's build, on the launches of one steady step of
-        the fused main path (kernel 2's kernels each under its route; for
-        kernels 5-8 the composed path; kernel 3 on att's and props', kernel 1
-        on att's, acc's and att_tau's): each launch's time, the
-        builds interleaved round by round, each build's outputs against the
-        package's and every other build's, bit for bit (per output), and
-        (kernel 2) against the f64 plain version;
+        kernel 3, kernel 1, kernel 9) built from each DIR's ip_phase.cu
+        (sdf_fused.cu, sdf_fused_x3.cu and sdf_fused_bf16.cu, one after the
+        other; qp_solve.cu, condense.cu, lin_y_sens.cu, erk4_sens.cu) and the
+        headers beside it against the package's build, on the launches of one
+        steady step of the fused main path (kernel 2's kernels each under its
+        route; for kernels 5-8 the composed path; kernel 3 on att's and
+        props', kernel 1 on att's, acc's and att_tau's, kernel 9 on rates',
+        wrench's and props'): each launch's time, the builds interleaved round
+        by round, each build's outputs against the package's and every other
+        build's, bit for bit and by the largest difference (per output and
+        launch), for kernel 2 against the f64 plain version and for kernel 9
+        against its plain version under ERK4_TOL;
     python3 chip_smoke.py --composed
         phases 1, 2, 8 (without the kernel numbers) and 9: the composed main
         path and the ``Nmpc`` controller; copied into another tree, the same
@@ -1405,7 +1408,8 @@ def phase_kernel_numbers(counts, t_step, steady, state, inputs, card):
             name = row["name"]
             row["geometry"] = (sdf_fused.sdf_fused_geometry() if name == "sdf_fused" else
                                sdf_fused.sdf_fused_x3_geometry() if name == "sdf_fused_x3" else
-                               sdf_fused.sdf_fused_bf16_geometry(SDF_ROUTES[name]))
+                               sdf_fused.sdf_fused_bf16_geometry(SDF_ROUTES[name],
+                                                                 calls[name][0][0]))
             regs = next(iter(ptxas_report(f"{name}_kernel").values()), {})
             row["geometry"].update(regs)
             log(f"  {name}: {row['geometry']['threads']} threads and "
@@ -1462,21 +1466,22 @@ def ptxas_report(kernel: str) -> dict:
 
 
 def instance_name(kernel: str, mangled: str) -> str:
-    """A readable name of a template instance of kernel 3 or 1 from its
+    """A readable name of a template instance of kernel 3, 1 or 9 from its
     mangled name: "nx10", "nx13", "nx<=16" (condense), "att", "acc",
-    "att_tau" (lin_y_sens)."""
+    "att_tau" (lin_y_sens), "rates", "wrench", "props" (erk4_sens)."""
     m = re.search(r"ILi(\d+)ELb([01])E", mangled)
     if m:
         return f"nx{m.group(1)}" if m.group(2) == "1" else f"nx<={m.group(1)}"
-    for key, name in (("6AttTau", "att_tau"), ("3Acc", "acc"), ("3Att", "att")):
+    for key, name in (("6AttTau", "att_tau"), ("3Acc", "acc"), ("3Att", "att"),
+                      ("5Rates", "rates"), ("6Wrench", "wrench"), ("5Props", "props")):
         if key in mangled:
             return name
     return mangled
 
 
 def geometry_row(name: str, geo: dict, instance: str, card: str) -> dict:
-    """Kernel 3's or 1's launch geometry with the ptxas registers of the
-    instance that ran, printed."""
+    """Kernel 3's, 1's or 9's launch geometry with the ptxas registers of
+    the instance that ran, printed."""
     regs = ptxas_report(f"{name}_kernel").get(instance, {})
     log(f"  {name} ({instance}): {geo['threads']} threads and {geo['smem_bytes']} B of shared "
         f"memory per block, {geo['blocks_per_sm']} blocks per SM; ptxas "
@@ -1500,6 +1505,13 @@ def lin_geometry_row(args, card) -> dict:
 
     instance = ("att", "acc", "att_tau")[args[0].kernel_model[1]]  # csrc/lin_y_sens.cu's ids
     return geometry_row("lin_y_sens", lin_kernels.lin_y_sens_geometry(args[0]), instance, card)
+
+
+def erk4_geometry_row(args, card) -> dict:
+    from sdf_nmpc_tpu_torch.ops import lin_kernels
+
+    instance = ("rates", "wrench", "props")[args[0].kernel_model[1]]  # csrc/erk4_sens.cu's ids
+    return geometry_row("erk4_sens", lin_kernels.erk4_sens_geometry(args[0]), instance, card)
 
 
 def kernel_rows(runs, calls, counts, errs, peaks, part, rates=None):
@@ -1774,9 +1786,8 @@ def phase_family_accuracy(dev, model, over=None, label=None) -> dict:
 def phase_family_numbers(model, counts, t_step, steady, state, inputs, card):
     """Kernel 9's (or 1's) row and kernel 3's on the inputs one steady step
     of the family gives them at B=MAIN_B (held against their plain versions
-    there too), kernel 1's and 3's with their launch geometry, and, for
-    kernel 9, the time of the torch.func residual rows the step adds around
-    it."""
+    there too), each with its launch geometry, and, for kernel 9, the time
+    of the torch.func residual rows the step adds around it."""
     from torch.func import jacfwd, vmap
 
     from sdf_nmpc_tpu_torch.ops import condense_kernel, lin_kernels
@@ -1806,6 +1817,7 @@ def phase_family_numbers(model, counts, t_step, steady, state, inputs, card):
         row["geometry"] = lin_geometry_row(calls[name][0], card)
         log(f"  lin_y_sens {row['ms']:.4f} ms/step")
     if name == "erk4_sens":
+        row["geometry"] = erk4_geometry_row(calls[name][0], card)
         spec, X, U, _ = calls[name][0]
         ocp_y = spec.y
         P = inputs.p[:, :-1].reshape(X.shape[0], -1)
@@ -1973,8 +1985,8 @@ def phase_other_rows(dev, card) -> dict:
 
 # source -> (its C functions, the kernels timed, the models whose steady
 # step gives the launches) for --ip-builds, --sdf-builds (kernel 2's three
-# sources), --qp-builds, --condense-builds and --lin-builds; a function a
-# tree lacks is not bound
+# sources), --qp-builds, --condense-builds, --lin-builds and --erk4-builds; a
+# function a tree lacks is not bound
 VARIANTS = {"ip_phase.cu": (("ip_phase_launch", "ip_phase_geometry"), ("ip_phase",), ("att",)),
             "sdf_fused.cu": (("sdf_fused_launch", "sdf_fused_geometry"), ("sdf_fused",),
                              ("att",)),
@@ -1987,7 +1999,9 @@ VARIANTS = {"ip_phase.cu": (("ip_phase_launch", "ip_phase_geometry"), ("ip_phase
             "condense.cu": (("condense_launch", "condense_geometry"), ("condense",),
                             ("att", "props")),
             "lin_y_sens.cu": (("lin_y_sens_launch", "lin_y_sens_geometry"), ("lin_y_sens",),
-                              ("att",) + LIN_FAMILIES)}
+                              ("att",) + LIN_FAMILIES),
+            "erk4_sens.cu": (("erk4_sens_launch", "erk4_sens_geometry"), ("erk4_sens",),
+                             ERK4_FAMILIES)}
 
 
 def build_variant(src_dir: str, source: str, out_dir) -> str:
@@ -2020,15 +2034,18 @@ def build_over(kernel):
 
 def phase_builds(dev, card, source, dirs, rounds=3):
     """The kernels of ``source`` (kernel 4, one of kernel 2's three sources,
-    kernels 5-8, kernel 3 or kernel 1) built from other source trees against
-    the package's build, on their launches of one steady step of the main
-    path that runs them (B=MAIN_B; build_over: the composed path for kernels
-    5-8, kernel 2's kernels each under its route; kernel 3 on att's and
-    props' fused paths, kernel 1 on att's, acc's and att_tau's): each
-    launch's time, the builds interleaved round by round, whether each
-    build's outputs equal the package's bit for bit, and for kernel 2 how far
-    its value and gradient lie from the f64 plain version.  A tree must keep
-    the package's C interface and host-side layout."""
+    kernels 5-8, kernel 3, kernel 1 or kernel 9) built from other source
+    trees against the package's build, on their launches of one steady step
+    of the main path that runs them (B=MAIN_B; build_over: the composed path
+    for kernels 5-8, kernel 2's kernels each under its route; kernel 3 on
+    att's and props' fused paths, kernel 1 on att's, acc's and att_tau's,
+    kernel 9 on rates', wrench's and props'): each launch's time, the builds
+    interleaved round by round, whether each build's outputs equal the
+    package's bit for bit and their largest difference per output and
+    launch, for kernel 2 how far its value and gradient lie from the f64
+    plain version, and for kernel 9 how far each output lies from the plain
+    version (held to ERK4_TOL).  A tree must keep the package's C interface
+    and host-side layout."""
     import ctypes
 
     from sdf_nmpc_tpu_torch.ops import (
@@ -2058,7 +2075,8 @@ def phase_builds(dev, card, source, dirs, rounds=3):
             **{name: (name, lambda a, _n=name: getattr(qp_kernels, _n)(*a))
                for name in COMPOSED_KERNELS},
             "condense": ("condense", lambda a: condense_kernel.condense(*a)),
-            "lin_y_sens": ("lin_y_sens", lambda a: lin_kernels.lin_y_sens(*a))}
+            "lin_y_sens": ("lin_y_sens", lambda a: lin_kernels.lin_y_sens(*a)),
+            "erk4_sens": ("erk4_sens", lambda a: lin_kernels.erk4_sens(*a))}
     calls = {kernel: [] for kernel in kernels}
     for model in models:
         for over in {str(build_over(k)): build_over(k) for k in kernels}.values():
@@ -2122,9 +2140,25 @@ def phase_builds(dev, card, source, dirs, rounds=3):
                 per_out = {str(o): all(torch.equal(out[i], wo[i])
                                        for out, wo in zip(outs, want[kernel]))
                            for i, o in enumerate(names)}
+                diff_by = [[max_abs(g, w) for g, w in zip(o, wo)]
+                           for o, wo in zip(outs, want[kernel])]  # per launch, per output
                 rep = report[name][kernel] = {"launch_ms": times[name][kernel],
                                               "bitwise_equal": same, "max_abs_diff": diff,
-                                              "bitwise_equal_by_output": per_out}
+                                              "bitwise_equal_by_output": per_out,
+                                              "max_abs_diff_by_launch": diff_by}
+                if kernel == "erk4_sens":  # each output against the plain version
+                    rep["plain_err"] = []
+                    for o, a in zip(outs, calls[kernel]):
+                        want_p = lin_kernels.erk4_sens_plain(*a)
+                        errs = [(max_abs(g, w), ERK4_TOL * (1 + float(w.abs().max())))
+                                for g, w in zip(o, want_p)]
+                        rep["plain_err"].append(errs)
+                        log(f"erk4_sens build {name}: {a[0].name}: against the plain version, "
+                            + ", ".join(f"{n} {e:.2e} (tol {t:.2e})"
+                                        for n, (e, t) in zip(("x+", "A", "B"), errs)))
+                        if not all(e <= t for e, t in errs):
+                            raise AssertionError(f"erk4_sens build {name} ({a[0].name}) "
+                                                 "disagrees with its plain version")
                 if kernel in SDF_ROUTES:  # value and gradient against the f64 plain version
                     errs = [vs_f64(o, a) for o, a in zip(outs, calls[kernel])]
                     rep["f64_err"] = errs
@@ -2137,16 +2171,22 @@ def phase_builds(dev, card, source, dirs, rounds=3):
                                    a[0][0].shape[-1], a[0][1].shape[1], a[2])
                                    for a in calls[kernel]])
                 geo_fn = {"sdf_fused_mixed": "sdf_fused_bf16"}.get(kernel, kernel) + "_geometry"
-                if kernel in SDF_ROUTES and hasattr(lib, geo_fn):
+                # the bf16 kernels' geometry takes the input widths since this
+                # tree's build: another tree's is not called with them
+                if kernel in SDF_ROUTES and hasattr(lib, geo_fn) and (
+                        kernel not in BF16_ROUTES or name == "package"):
                     rep["geometry"] = (
-                        sdf_fused.sdf_fused_bf16_geometry(SDF_ROUTES[kernel])
+                        sdf_fused.sdf_fused_bf16_geometry(SDF_ROUTES[kernel],
+                                                          calls[kernel][0][0])
                         if kernel in BF16_ROUTES else _lib.geometry(geo_fn))
                     log(f"{kernel} build {name}: geometry {rep['geometry']}")
-                if kernel in ("condense", "lin_y_sens") and hasattr(lib, f"{kernel}_geometry"):
-                    geo = (lambda a: condense_kernel.condense_geometry(
-                        a[0].shape[1], a[0].shape[2], a[1].shape[-1], a[4].shape[2],
-                        a[7].shape[2])) if kernel == "condense" else (
-                        lambda a: lin_kernels.lin_y_sens_geometry(a[0]))
+                if (kernel in ("condense", "lin_y_sens", "erk4_sens")
+                        and hasattr(lib, f"{kernel}_geometry")):
+                    geo = {"condense": lambda a: condense_kernel.condense_geometry(
+                               a[0].shape[1], a[0].shape[2], a[1].shape[-1], a[4].shape[2],
+                               a[7].shape[2]),
+                           "lin_y_sens": lambda a: lin_kernels.lin_y_sens_geometry(a[0]),
+                           "erk4_sens": lambda a: lin_kernels.erk4_sens_geometry(a[0])}[kernel]
                     rep["geometry"] = [geo(a) for a in calls[kernel]]
                     log(f"{kernel} build {name}: geometry per launch {rep['geometry']}")
                 per_round = [sum(ms[r] for ms in times[name][kernel]) for r in range(rounds)]
@@ -2157,7 +2197,8 @@ def phase_builds(dev, card, source, dirs, rounds=3):
                 log(f"{kernel} build {name}: {len(calls[kernel])} launches, "
                     f"{', '.join(f'{t:.4f}' for t in per_round)} ms per step over {rounds} "
                     f"rounds; outputs {'equal to' if same else 'differ from'} the package's "
-                    f"build bit for bit (max diff {diff:.3e}; by output {per_out}); card {card}")
+                    f"build bit for bit (max diff {diff:.3e}; by output {per_out}; per launch "
+                    f"and output {[['%.2e' % d for d in row] for row in diff_by]}); card {card}")
         for (name, kernel), outs in every.items():  # which other builds give the same bits
             same = [other for (other, k), o in every.items() if k == kernel and other != name
                     and all(torch.equal(g, w) for x, y in zip(outs, o) for g, w in zip(x, y))]
@@ -2186,6 +2227,9 @@ def main(argv=None) -> int:
     ap.add_argument("--lin-builds", nargs="+", metavar="DIR",
                     help="time kernel 1 built from each DIR's lin_y_sens.cu against the "
                          "package's build, then stop")
+    ap.add_argument("--erk4-builds", nargs="+", metavar="DIR",
+                    help="time kernel 9 built from each DIR's erk4_sens.cu against the "
+                         "package's build, then stop")
     ap.add_argument("--composed", action="store_true",
                     help="run only the composed main path and Nmpc, then stop")
     args = ap.parse_args(argv)
@@ -2198,7 +2242,8 @@ def main(argv=None) -> int:
     for sources, dirs in ((("ip_phase.cu",), args.ip_builds), (sdf_sources, args.sdf_builds),
                           (("qp_solve.cu",), args.qp_builds),
                           (("condense.cu",), args.condense_builds),
-                          (("lin_y_sens.cu",), args.lin_builds)):
+                          (("lin_y_sens.cu",), args.lin_builds),
+                          (("erk4_sens.cu",), args.erk4_builds)):
         if dirs:
             for source in sources:
                 phase_builds(dev, card, source, dirs)

@@ -52,6 +52,21 @@ __device__ __forceinline__ float block_min(float v, float* red, int& slot) {
   return s;
 }
 
+// n floats from shared src to dst by the block's NT consecutive threads,
+// float4 where dst is 16-byte aligned (src always is): the staged outputs of
+// kernels 1 and 9 (lin_y_sens.cu, erk4_sens.cu).
+template <int NT>
+__device__ __forceinline__ void store_chunk(float* __restrict__ dst, const float* src, int n) {
+  const int t = threadIdx.x;
+  int i0 = 0;
+  if ((reinterpret_cast<size_t>(dst) & 15) == 0) {
+    for (int i = t; i < n / 4; i += NT)
+      reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(src)[i];
+    i0 = n / 4 * 4;
+  }
+  for (int i = i0 + t; i < n; i += NT) dst[i] = src[i];
+}
+
 // (value, index) order of argmax: larger value wins, NaN beats any number,
 // and ties go to the LOWER index (jnp.argmax / lax.top_k ordering).
 __device__ __forceinline__ bool argmax_better(float v, int i, float bv, int bi) {

@@ -1,8 +1,7 @@
-// Two forward-mode tangents at once (kernel 1, lin_y_sens.cu): each tangent
-// component follows dual.cuh's scalar Dual rule with the same operations in
-// the same order, and the value component is the float expression, so one
-// Dual2 sweep computes what two scalar sweeps do.  dual.cuh itself, and so
-// erk4_sens.cu (kernel 9), is unchanged by it.
+// Two forward-mode tangents at once (kernels 1 and 9, lin_y_sens.cu and
+// erk4_sens.cu): each tangent component follows dual.cuh's scalar Dual rule
+// with the same operations in the same order, and the value component is the
+// float expression, so one Dual2 sweep computes what two scalar sweeps do.
 #pragma once
 
 #include "dual.cuh"

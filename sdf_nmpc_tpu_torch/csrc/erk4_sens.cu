@@ -1,30 +1,41 @@
 // RK4 step + exact discrete sensitivities for the models without a
-// component-form residual (rates, wrench, props), one thread per (scenario,
-// shooting node) point.
+// component-form residual (rates, wrench, props).
 //
 // Replaces: sdf_nmpc_tpu/ops/lin_kernels.py _erk4_sens_kernel (:49).  For
-// each point: x+ = RK4(f, x, u, dt), A = dx+/dx (nx x nx), B = dx+/du
-// (nx x 4), in f32: kernel 1's first three outputs without the residual
-// rows.  f is the model's component form f_lanes (models/quad_rates.py,
-// quad_wrench.py, quad_props.py), one struct each; the kernel is a template
-// over it.  The nx + 4 unit tangents (14 for rates, 17 for wrench and props)
-// are swept one after another, each carried as a forward-mode dual number
-// (dual.cuh) through the four stages of RK4 in registers.  The constants
-// (input scales; props' mass, allocation and inertia) come by value in
-// ModelConsts.
+// each (scenario, shooting node) point: x+ = RK4(f, x, u, dt), A = dx+/dx
+// (nx x nx), B = dx+/du (nx x 4), in f32: kernel 1's first three outputs
+// without the residual rows.  f is the model's component form f_lanes
+// (models/quad_rates.py, quad_wrench.py, quad_props.py), one struct each; the
+// kernel is a template over it.  The constants (input scales; props' mass,
+// allocation and inertia) come by value in ModelConsts.
 //
-// Bound on this card: per point the kernel reads nx + 5 floats and writes
-// nx (1 + nx + 4) (rates 15 and 150, wrench and props 18 and 234: 108 and
-// 165 MB at B=8192, N=20), against the register arithmetic of one primal RK4
-// and nx + 4 tangent sweeps through it (chip_smoke.py counts both; the
-// operations come out near or above the bytes).  Like kernel 1 it keeps
-// every intermediate in registers and writes each point's outputs from its
-// own thread, so the column stores of A and B are strided across a warp.
-// The levers for a later PR: stage the outputs through shared memory for
-// coalesced stores, and carry several tangents per pass so that the primal
-// values are computed once for them.
+// Bound on this card: bytes.  Per point the kernel reads nx + 5 floats and
+// writes nx (1 + nx + 4) (rates 15 and 150, wrench and props 18 and 234: 108
+// and 165 MB at B=8192, N=20) against the register arithmetic of one primal
+// RK4 and nx + 4 tangent sweeps through it (chip_smoke.py counts both).
+//
+// Design: kernel 1's (lin_y_sens.cu).  One thread per point and pair of
+// tangent directions: a block takes PB consecutive points, NL = (nx + 5) / 2
+// threads each (rates 7, wrench and props 9; the ninth carries direction 16
+// and a zero second tangent), and thread t runs directions 2 (t % NL) and
+// 2 (t % NL) + 1 of point t / NL as one Dual2 sweep (dual2.cuh: each tangent
+// by dual.cuh's scalar rule, in its order); the point's first thread also
+// stores x+ from the sweep's values, the float instance's expressions.  The
+// block loads its points' inputs into shared memory (coalesced), every
+// thread writes its columns of A and B into a shared slab of the block's
+// outputs, and after one barrier the block stores each output's contiguous
+// chunk with consecutive threads on consecutive floats, as float4 where the
+// chunk is 16-byte aligned.  __launch_bounds__ asks for MIN_BLOCKS blocks
+// per SM.  Measured (chip_smoke.py --erk4-builds, one B=8192 steady step's
+// launch, H100 80GB HBM3 at 700 W): rates 0.16, wrench 0.19, props 0.34 ms,
+// against 0.46-0.50, 0.78 and 0.77 for the first design (one thread per
+// point, the nx + 4 scalar sweeps one after another, each recomputing the
+// primal, the columns stored strided across the warp); 32 points a block or
+// 2 or 6 blocks per SM were no faster for all three (PERF.md section 6).
+// Its outputs differ from the first design's by nvcc's contractions alone
+// (up to 9.5e-7).
 
-#include "dual.cuh"
+#include "dual2.cuh"
 
 namespace {
 
@@ -138,56 +149,107 @@ struct Props {
   }
 };
 
+constexpr int PB = 16;          // points per block
+constexpr int MIN_BLOCKS = 4;   // __launch_bounds__' resident blocks per SM
+
 template <class Model>
-__global__ void erk4_sens_kernel(const float* __restrict__ X, const float* __restrict__ U,
-                                 const float* __restrict__ dtv, float* __restrict__ XN,
-                                 float* __restrict__ A, float* __restrict__ Bm, int M,
-                                 ModelConsts c) {
-  constexpr int NX = Model::NX;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= M) return;
-  float x[NX], u[NU];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) x[i] = X[size_t(p) * NX + i];
-#pragma unroll
-  for (int i = 0; i < NU; ++i) u[i] = U[size_t(p) * NU + i];
-  const float dt = dtv[p];
+struct Geo {
+  static constexpr int NX = Model::NX;
+  static constexpr int NL = (NX + NU + 1) / 2;  // threads per point, two directions each
+  static constexpr int NT = PB * NL;
+  static constexpr int IN = NX + NU + 1;           // x, u, dt
+  static constexpr int OUT = NX + NX * NX + NX * NU;  // x+, A, B
+  static constexpr size_t SMEM = sizeof(float) * PB * (IN + OUT);
+};
 
-  {
-    float xn[NX];
-    erk4<Model>(x, u, dt, c, xn);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) XN[size_t(p) * NX + i] = xn[i];
-  }
+template <class Model>
+__global__ void __launch_bounds__(Geo<Model>::NT, MIN_BLOCKS) erk4_sens_kernel(
+    const float* __restrict__ X, const float* __restrict__ U, const float* __restrict__ dtv,
+    float* __restrict__ XN, float* __restrict__ A, float* __restrict__ Bm, int M,
+    ModelConsts c) {
+  using G = Geo<Model>;
+  constexpr int NX = G::NX, NL = G::NL, NT = G::NT;
+  extern __shared__ float smem[];
+  // inputs, by array: x (PB x NX), u, dt; then the outputs, each the block's chunk of it
+  float* sx = smem;
+  float* su = sx + PB * NX;
+  float* sdt = su + PB * NU;
+  float* sxn = sdt + PB;
+  float* sA = sxn + PB * NX;
+  float* sB = sA + PB * NX * NX;
 
-#pragma unroll 1
-  for (int dir = 0; dir < NX + NU; ++dir) {
-    Dual xd[NX], ud[NU], xn[NX];
+  const int t = threadIdx.x;
+  const size_t p0 = size_t(blockIdx.x) * PB;
+  const int np = min(PB, int(M - p0));
+  for (int i = t; i < np * NX; i += NT) sx[i] = X[p0 * NX + i];
+  for (int i = t; i < np * NU; i += NT) su[i] = U[p0 * NU + i];
+  for (int i = t; i < np; i += NT) sdt[i] = dtv[p0 + i];
+  __syncthreads();
+
+  const int q = t / NL, d0 = 2 * (t - q * NL);
+  if (q < np) {
+    Dual2 xd[NX], ud[NU], xn[NX];
 #pragma unroll
-    for (int i = 0; i < NX; ++i) xd[i] = {x[i], dir == i ? 1.f : 0.f};
+    for (int i = 0; i < NX; ++i)
+      xd[i] = {sx[q * NX + i], d0 == i ? 1.f : 0.f, d0 + 1 == i ? 1.f : 0.f};
 #pragma unroll
-    for (int i = 0; i < NU; ++i) ud[i] = {u[i], dir == NX + i ? 1.f : 0.f};
-    erk4<Model>(xd, ud, dt, c, xn);
-    if (dir < NX) {
+    for (int i = 0; i < NU; ++i)
+      ud[i] = {su[q * NU + i], d0 == NX + i ? 1.f : 0.f, d0 + 1 == NX + i ? 1.f : 0.f};
+    erk4<Model>(xd, ud, sdt[q], c, xn);
+    if (d0 == 0) {
 #pragma unroll
-      for (int i = 0; i < NX; ++i) A[(size_t(p) * NX + i) * NX + dir] = xn[i].d;
-    } else {
+      for (int i = 0; i < NX; ++i) sxn[q * NX + i] = xn[i].v;
+    }
 #pragma unroll
-      for (int i = 0; i < NX; ++i) Bm[(size_t(p) * NX + i) * NU + dir - NX] = xn[i].d;
+    for (int h = 0; h < 2; ++h) {
+      const int dir = d0 + h;
+      if (dir < NX) {
+#pragma unroll
+        for (int i = 0; i < NX; ++i) sA[(q * NX + i) * NX + dir] = h ? xn[i].d1 : xn[i].d0;
+      } else if (dir < NX + NU) {
+#pragma unroll
+        for (int i = 0; i < NX; ++i) sB[(q * NX + i) * NU + dir - NX] = h ? xn[i].d1 : xn[i].d0;
+      }
     }
   }
+  __syncthreads();
+
+  store_chunk<NT>(XN + p0 * NX, sxn, np * NX);
+  store_chunk<NT>(A + p0 * NX * NX, sA, np * NX * NX);
+  store_chunk<NT>(Bm + p0 * NX * NU, sB, np * NX * NU);
 }
 
 template <class Model>
 cudaError_t launch(const float* X, const float* U, const float* dt, float* xn, float* A,
                    float* Bm, int M, const ModelConsts& c, cudaStream_t stream) {
-  const int threads = 128;
-  erk4_sens_kernel<Model><<<(M + threads - 1) / threads, threads, 0, stream>>>(
-      X, U, dt, xn, A, Bm, M, c);
+  using G = Geo<Model>;
+  erk4_sens_kernel<Model><<<(M + PB - 1) / PB, G::NT, G::SMEM, stream>>>(X, U, dt, xn, A, Bm,
+                                                                          M, c);
   return cudaGetLastError();
 }
 
+template <class Model>
+int geometry(int* threads, int* smem, int* blocks_per_sm) {
+  using G = Geo<Model>;
+  *threads = G::NT;
+  *smem = int(G::SMEM);
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, erk4_sens_kernel<Model>, G::NT, G::SMEM));
+}
+
 }  // namespace
+
+// Launch geometry of model's instance (0 rates, 1 wrench, 2 props): threads
+// per block, dynamic shared bytes per block and resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+SDF_NMPC_EXPORT int erk4_sens_geometry(int model, int* threads, int* smem, int* blocks_per_sm) {
+  switch (model) {
+    case 0: return geometry<Rates>(threads, smem, blocks_per_sm);
+    case 1: return geometry<Wrench>(threads, smem, blocks_per_sm);
+    case 2: return geometry<Props>(threads, smem, blocks_per_sm);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
 
 // model: 0 rates, 1 wrench, 2 props (ModelSpec.kernel_model); consts:
 // host pointer to the n_consts floats of models/base.py::kernel_consts.

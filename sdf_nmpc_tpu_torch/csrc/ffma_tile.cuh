@@ -12,7 +12,8 @@
 //     (one wavefront) and the lanes that share a run read it as a broadcast;
 //   - A, one of two layouts: KMajor (the rows of one k contiguous: one load
 //     brings four rows at one k) or RowMajor (the k of one row contiguous: one
-//     load brings four k of one row).  KMajorScalar reads single rows of a
+//     load brings four k of one row; RowMajorDyn with its row stride known at
+//     run time).  KMajorScalar reads single rows of a
 //     k-major array (the 'f32' route's primal-only chunks).
 // The caller places the lanes so that each warp-wide load is free of bank
 // conflicts (sdf_fused.cu, sdf_fused_bf16.cu say how).
@@ -66,6 +67,22 @@ struct RowMajor {
     for (int r = 0; r < NR; ++r) {
       float x[4];
       ld4(x, p + r * RSTEP * LDA + k0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) v[kk][r] = x[kk];
+    }
+  }
+};
+
+// RowMajor with a row stride lda known at run time.
+template <int NR, int RSTEP>
+struct RowMajorDyn {
+  const float* p;
+  int lda;
+  __device__ __forceinline__ void load4(int k0, float (&v)[4][NR]) const {
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      float x[4];
+      ld4(x, p + r * RSTEP * lda + k0);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) v[kk][r] = x[kk];
     }

@@ -204,19 +204,6 @@ constexpr int IN = NX + NU + 4 + 1 + NY;  // x, u, q_d, dt, yref
 constexpr int OUT = NX + NX * NX + NX * NU + NY + NY * NX + NY * NU;
 constexpr size_t SMEM = sizeof(float) * PB * (IN + OUT);
 
-// n floats from shared src to dst by consecutive threads; float4 where dst
-// is 16-byte aligned (src always is)
-__device__ __forceinline__ void store_chunk(float* __restrict__ dst, const float* src, int n) {
-  const int t = threadIdx.x;
-  int i0 = 0;
-  if ((reinterpret_cast<size_t>(dst) & 15) == 0) {
-    for (int i = t; i < n / 4; i += NT)
-      reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(src)[i];
-    i0 = n / 4 * 4;
-  }
-  for (int i = i0 + t; i < n; i += NT) dst[i] = src[i];
-}
-
 template <class Model>
 __global__ void __launch_bounds__(NT, 5) lin_y_sens_kernel(
     const float* __restrict__ X, const float* __restrict__ U, const float* __restrict__ dtv,
@@ -285,12 +272,12 @@ __global__ void __launch_bounds__(NT, 5) lin_y_sens_kernel(
   }
   __syncthreads();
 
-  store_chunk(XN + p0 * NX, sxn, np * NX);
-  store_chunk(A + p0 * NX * NX, sA, np * NX * NX);
-  store_chunk(Bm + p0 * NX * NU, sB, np * NX * NU);
-  store_chunk(RES + p0 * NY, sres, np * NY);
-  store_chunk(JYX + p0 * NY * NX, sJyx, np * NY * NX);
-  store_chunk(JYU + p0 * NY * NU, sJyu, np * NY * NU);
+  store_chunk<NT>(XN + p0 * NX, sxn, np * NX);
+  store_chunk<NT>(A + p0 * NX * NX, sA, np * NX * NX);
+  store_chunk<NT>(Bm + p0 * NX * NU, sB, np * NX * NU);
+  store_chunk<NT>(RES + p0 * NY, sres, np * NY);
+  store_chunk<NT>(JYX + p0 * NY * NX, sJyx, np * NY * NX);
+  store_chunk<NT>(JYU + p0 * NY * NU, sJyu, np * NY * NU);
 }
 
 template <class Model>

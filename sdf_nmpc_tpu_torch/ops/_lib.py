@@ -47,6 +47,7 @@ _SIGNATURES = {
     "lin_y_sens_launch": [_P] * 11 + [_I, _I, _P, _I, _P],
     "lin_y_sens_geometry": [_I] + [_P] * 3,
     "erk4_sens_launch": [_P] * 6 + [_I, _I, _P, _I, _P],
+    "erk4_sens_geometry": [_I] + [_P] * 3,
     "sdf_fused_launch": [_P] * 15 + [_I] * 5 + [_F, _P],
     "sdf_fused_geometry": [_P] * 3,
     "sdf_fused_x3_launch": [_P] * 9 + [_I] * 6 + [_F, _P],
@@ -54,7 +55,8 @@ _SIGNATURES = {
     # (emb, demb, lat, Wb, Wf, bias, w5, w5r, b5, df, grad, P, nemb, L, nxe, nxl,
     #  mixed, act, w0, stream)
     "sdf_fused_bf16_launch": [_P] * 11 + [_I] * 7 + [_F, _P],
-    "sdf_fused_bf16_geometry": [_I] + [_P] * 3,
+    # (mixed, nemb, L, threads, smem, blocks per SM)
+    "sdf_fused_bf16_geometry": [_I] * 3 + [_P] * 3,
     "condense_launch": [_P] * 18 + [_I] * 6 + [_P],
     "condense_geometry": [_I] * 5 + [_P] * 3,
     "ip_phase_launch": [_P] * 12 + [_I] * 7 + [_F] * 5 + [_P],

@@ -14,9 +14,10 @@ without ``y_lanes`` (rates, wrench, props); their residual rows come from
 
 On CUDA tensors each wrapper launches its CUDA source (``csrc/lin_y_sens.cu``,
 ``csrc/erk4_sens.cu``), instantiated per model: the model's component forms
-f_lanes / y_lanes as device functions, forward-mode tangents in registers,
-the model's constants (``ModelSpec.kernel_consts``) passed by value, the
-instantiation named by ``ModelSpec.kernel_model``.  A model without an
+f_lanes / y_lanes as device functions, two forward-mode tangents per thread
+in registers (``csrc/dual2.cuh``), the model's constants
+(``ModelSpec.kernel_consts``) passed by value, the instantiation named by
+``ModelSpec.kernel_model``.  A model without an
 instantiation of that kernel raises.  On CPU tensors a wrapper runs its plain
 version: RK4 of the model's ``f`` (true atan2 / asin) differentiated with
 ``torch.func.jacfwd``, exactly the JAX package's non-kernel path.  The two
@@ -122,6 +123,13 @@ def _erk4_sens_cuda(model, X, U, dt):
     _lib.check(err, "erk4_sens")
     _lib.launch_counts["erk4_sens"] += 1
     return out
+
+
+def erk4_sens_geometry(model) -> dict:
+    """Kernel 9's launch for ``model``'s instantiation on the current card:
+    threads per block, dynamic shared bytes per block, resident blocks per
+    SM."""
+    return _lib.geometry("erk4_sens_geometry", _model_id("erk4_sens", model))
 
 
 def erk4_sens(model, X, U, dt):

@@ -402,10 +402,12 @@ def _sdf_value_grad_bf16_cuda(packed, pos, latent, mode):
     return df, grad
 
 
-def sdf_fused_bf16_geometry(mode) -> dict:
-    """The bf16 or mixed kernel's launch on the current card: threads per
+def sdf_fused_bf16_geometry(mode, packed) -> dict:
+    """The bf16 or mixed kernel's launch for ``packed``'s network on the
+    current card (its shared memory holds the tile's input rows): threads per
     block, dynamic shared bytes per block, resident blocks per SM."""
-    return _lib.geometry("sdf_fused_bf16_geometry", int(mode == "mixed"))
+    return _lib.geometry("sdf_fused_bf16_geometry", int(mode == "mixed"), packed["nemb"],
+                         packed["L"])
 
 
 def sdf_value_grad(packed, pos, latent, mode="f32"):

@@ -66,8 +66,9 @@ def t32(a):
 # - shuffles and the vote go through a per-warp exchange buffer between two
 #   warp barriers, so a lane that skips one deadlocks the test instead of
 #   passing;
-# - shared memory is poisoned with NaN before each block, so a read of a word
-#   the block did not write shows in the result;
+# - shared memory is poisoned with NaN before each block (a word whose halves
+#   are NaN as bf16 too), so a read of a word the block did not write shows in
+#   the result;
 # - the cp.async copies of ``async_copy.cuh`` are plain copies (an emulated
 #   ``async_copy.cuh`` beside the rewritten source is found before the real
 #   one).
@@ -134,6 +135,15 @@ T swap_lanes(T v, int src) {
   return out;
 }
 
+// The word shared memory is filled with before each block: a NaN as a float,
+// and both of its halves NaN as bf16.
+inline float poison() {
+  const unsigned bits = 0x7FC07FC0u;
+  float f;
+  std::memcpy(&f, &bits, 4);
+  return f;
+}
+
 // Runs kernel(args...) over the grid, one block at a time.
 template <class... P, class... A>
 cudaError_t launch(void (*kernel)(P...), dim3 grid, dim3 block, size_t smem_bytes,
@@ -142,7 +152,7 @@ cudaError_t launch(void (*kernel)(P...), dim3 grid, dim3 block, size_t smem_byte
   std::vector<float> mem(smem_bytes / sizeof(float) + 1);
   std::vector<unsigned long long> slots(32 * nw);
   for (unsigned b = 0; b < grid.x; ++b) {
-    std::fill(mem.begin(), mem.end(), std::numeric_limits<float>::quiet_NaN());
+    std::fill(mem.begin(), mem.end(), poison());
     std::barrier<> bar(nt);
     std::vector<std::unique_ptr<std::barrier<>>> owned;
     std::vector<std::barrier<>*> wb;
@@ -190,6 +200,9 @@ inline int __all_sync(unsigned, int pred) {
   return all;
 }
 
+template <class T>
+T __ldg(const T* p) { return *p; }
+
 template <class K>
 cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return cudaSuccess; }
 // By threads and shared memory only (H100: 2048 threads, 228 KB, 1 KB reserved per block).
@@ -203,10 +216,20 @@ inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 cudaError_t cudaLaunchKernel(const void*, dim3, dim3, void**, size_t, cudaStream_t);
 """
 
-# async_copy.cuh: the copies done at once (the source's wait is then a no-op)
+# async_copy.cuh: the copies done at once (the source's wait is then a no-op);
+# a bulk copy is done at once too (aborting, as the card faults, off 16-byte
+# alignment or size) and then completes its bytes on the mbarrier.  An
+# mbarrier keeps, under one lock, its pending and expected arrivals, its
+# transaction bytes and its phase: a phase completes when both the arrivals
+# and the bytes are in.
 ASYNC_COPY_H = """
 #pragma once
+#include "cuda_runtime.h"
+#include <cstdint>
+#include <cstdlib>
 #include <cstring>
+#include <mutex>
+#include <thread>
 namespace acp {
 inline void copy4(float* dst, const float* src) { *dst = *src; }
 inline void copy16(float* dst, const float* src) { std::memcpy(dst, src, 16); }
@@ -215,6 +238,59 @@ inline void commit() {}
 template <int N>
 inline void wait() {}
 inline void wait_all() {}
+
+inline std::mutex mbar_lock;
+struct Mbar {
+  int32_t pending : 15, expected : 15, phase : 2;
+  int32_t tx;
+};
+static_assert(sizeof(Mbar) == 8, "an mbarrier is 8 bytes");
+inline void mbar_done(Mbar* m) {  // under the lock
+  if (m->pending == 0 && m->tx == 0) {
+    m->phase ^= 1;
+    m->pending = m->expected;
+  }
+}
+inline void mbar_init(uint64_t* bar, unsigned count) {
+  std::lock_guard<std::mutex> g(mbar_lock);
+  Mbar* m = reinterpret_cast<Mbar*>(bar);
+  m->pending = m->expected = int32_t(count);
+  m->phase = 0;
+  m->tx = 0;
+}
+inline void fence_mbar_init() {}
+inline void mbar_arrive(uint64_t* bar, int bytes) {
+  std::lock_guard<std::mutex> g(mbar_lock);
+  Mbar* m = reinterpret_cast<Mbar*>(bar);
+  m->tx += bytes;
+  m->pending -= 1;
+  mbar_done(m);
+}
+inline void mbar_complete(uint64_t* bar, int bytes) {
+  std::lock_guard<std::mutex> g(mbar_lock);
+  Mbar* m = reinterpret_cast<Mbar*>(bar);
+  m->tx -= bytes;
+  mbar_done(m);
+}
+inline void mbar_expect_tx(uint64_t* bar, unsigned bytes) { mbar_arrive(bar, int(bytes)); }
+inline void mbar_wait(uint64_t* bar, unsigned parity) {
+  for (;;) {
+    {
+      std::lock_guard<std::mutex> g(mbar_lock);
+      if (unsigned(reinterpret_cast<Mbar*>(bar)->phase & 1) != parity) return;
+    }
+    std::this_thread::yield();
+  }
+}
+inline void bulk_check(const void* dst, const void* src, unsigned bytes) {
+  // the card faults on a bulk copy off 16-byte alignment or size
+  if ((reinterpret_cast<size_t>(dst) | reinterpret_cast<size_t>(src) | bytes) % 16) std::abort();
+}
+inline void bulk_copy(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  bulk_check(dst, src, bytes);
+  std::memcpy(dst, src, bytes);
+  mbar_complete(bar, int(bytes));
+}
 }  // namespace acp
 """
 
@@ -225,15 +301,16 @@ MATH_CONSTANTS_H = """
 """
 
 
-# bf16.cuh and the cp.async part of tf32.cuh for sdf_fused_bf16.cu: rounding
-# to bf16 to nearest even on the bits; the m16n8k16 product gathers the
-# warp's fragments through a per-warp buffer between two warp barriers (as a
-# shuffle does), forms each lane's four outputs from the exact bf16 products
-# summed in double; the copies are done at once.
+# bf16.cuh for sdf_fused_bf16.cu: rounding to bf16 to nearest even on the
+# bits; ldmatrix.x4 and the m16n8k16 product gather the warp's addresses or
+# fragments through a per-warp buffer between two warp barriers (as a shuffle
+# does), the product forms each lane's four outputs from the exact bf16
+# products summed in double.
 BF16_CUH = r"""
 #pragma once
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include "common.cuh"
 
@@ -253,7 +330,24 @@ inline float from_bits(uint32_t b) {
   return f;
 }
 inline uint32_t pack(float lo, float hi) { return bits(lo) | (bits(hi) << 16); }
+inline uint16_t bits16(float x) { return uint16_t(bits(x)); }
 inline float rn(float x) { return from_bits(bits(x)); }
+// ldmatrix.x4: lane l gives the address of row l % 16, columns 8 (l / 16) ..
+// + 7; register i of lane l is matrix i's row l / 4, elements 2 (l % 4) and
+// 2 (l % 4) + 1, from the address lane 8 i + l / 4 gave (gathered between two
+// warp barriers, as a shuffle)
+inline const void* ldsm_rows[64][32];  // per warp and lane
+inline void ldsm_x4(uint32_t (&a)[4], const void* row) {
+  const int w = int(threadIdx.x) >> 5, lane = int(threadIdx.x) & 31;
+  if (reinterpret_cast<size_t>(row) % 16) std::abort();  // the card faults there
+  ldsm_rows[w][lane] = row;
+  emu::warp_barriers[w]->arrive_and_wait();
+  for (int i = 0; i < 4; ++i) {
+    const uint16_t* r = static_cast<const uint16_t*>(ldsm_rows[w][8 * i + (lane >> 2)]);
+    a[i] = uint32_t(r[2 * (lane & 3)]) | (uint32_t(r[2 * (lane & 3) + 1]) << 16);
+  }
+  emu::warp_barriers[w]->arrive_and_wait();
+}
 inline uint32_t fragments[64][32][6];  // per warp and lane: a[4], b[2]
 inline void mma_zero(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
   const int w = int(threadIdx.x) >> 5, lane = int(threadIdx.x) & 31;
@@ -284,19 +378,6 @@ inline void mma_zero(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[
 }
 }  // namespace bf16
 """
-
-TF32_COPIES_CUH = """
-#pragma once
-#include <cstring>
-namespace tf32 {
-inline void copy16(float* dst, const float* src) { std::memcpy(dst, src, 16); }
-inline void copy4(float* dst, const float* src, bool valid) { *dst = valid ? *src : 0.f; }
-inline void commit() {}
-template <int N>
-inline void wait() {}
-}  // namespace tf32
-"""
-
 
 def emulated_source(text: str) -> str:
     """A CUDA source rewritten for the emulation: dynamic shared memory from

@@ -632,6 +632,44 @@ def test_lin_y_sens_geometry(cuda_device):
 
 
 @pytest.mark.gpu
+def test_erk4_sens_geometry(cuda_device):
+    """Kernel 9's launch for each model: 16 points of (nx + 5) / 2 threads
+    (rates 112, wrench and props 144: two tangent directions each), the 16
+    points' inputs and outputs in shared memory."""
+    from sdf_nmpc_tpu_torch.ops.lin_kernels import erk4_sens_geometry
+
+    for model in ("rates", "wrench", "props"):
+        spec, _ = _family(model)
+        nx = spec.nx
+        geo = erk4_sens_geometry(spec)
+        print(f"{model}: {geo}")
+        assert geo["threads"] == 16 * ((nx + 5) // 2), model
+        assert geo["smem_bytes"] == 16 * 4 * (nx + 5 + nx * (1 + nx + 4)), model
+        assert geo["blocks_per_sm"] >= 4, model
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["rates", "wrench", "props"])
+@pytest.mark.parametrize("M", [1, 15, 33])
+def test_erk4_sens_kernel_ragged_blocks(cuda_device, model, M):
+    """Kernel 9 on M points that leave a partial 16-point block (1, 15, 33):
+    x+, A and B within 1e-4 (1 + their largest magnitude) of the plain
+    version, and each point equal bit for bit to the same point among 64
+    (a block's points do not mix)."""
+    from sdf_nmpc_tpu_torch.ops.lin_kernels import erk4_sens, erk4_sens_plain
+
+    spec, _ = _family(model)
+    args = [t32(a).to(cuda_device) for a in _points(64, spec.nx)]
+    full = erk4_sens(spec, *args)
+    part = [a[:M].contiguous() for a in args]
+    got = erk4_sens(spec, *part)
+    for g, f, w in zip(got, full, erk4_sens_plain(spec, *part)):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert torch.equal(g, f[:M])
+        assert max_abs(g, w) <= 1e-4 * (1 + float(w.abs().max()))
+
+
+@pytest.mark.gpu
 def test_nan_in_one_scenario_stays_there(cuda_device, monkeypatch):
     """One fused att step (cold budget) on the 32 accuracy scenarios twice
     over, once clean and once with a NaN in one scenario's A_5 (kernel 1's
@@ -686,7 +724,7 @@ def _rule_holds(got, want, rule):
 @pytest.mark.parametrize("mode", ["bf16", "mixed"])
 def test_sdf_fused_bf16_kernel_matches_plain_trained_net(cuda_device, mode):
     """Kernel 2's bf16 and mixed routes (sdf_fused_bf16.cu) on the trained
-    4x256 net, 2,077 points (not a multiple of the 32-point tile), against
+    4x256 net, 2,077 points (not a multiple of the 16- or 32-point tile), against
     their own plain versions, value and gradient per point under
     chip_smoke.py's SDF_BF16_RULE (share beyond 1e-3 at most 2% / 10%, the
     median at most 1e-6, the max at most 2e-2 / 5e-2); mixed's value rows
@@ -745,14 +783,53 @@ def test_sdf_fused_bf16_kernel_small_random_net(cuda_device, mode, embed, act):
 
 @pytest.mark.gpu
 def test_sdf_fused_bf16_geometry(cuda_device):
-    """The bf16 and mixed kernels' launch: 512 threads (16 warps, 32 points),
-    180,224 and 212,992 B of shared memory, one block per SM."""
-    from sdf_nmpc_tpu_torch.ops.sdf_fused import sdf_fused_bf16_geometry
+    """The bf16 and mixed kernels' launch for the trained net (83 embedding,
+    128 latent columns): bf16 256 threads (8 warps, 16 points) and 100,384 B
+    of shared memory, two blocks per SM; mixed 768 threads (8 primal and 16
+    tangent warps, 32 points) and 207,904 B, one block per SM."""
+    from sdf_nmpc_tpu_torch.nn.weights import load_prod_sdf
+    from sdf_nmpc_tpu_torch.ops.sdf_fused import pack_neural_df_params, sdf_fused_bf16_geometry
 
-    for mode, smem in (("bf16", 180224), ("mixed", 212992)):
-        geo = sdf_fused_bf16_geometry(mode)
+    packed = pack_neural_df_params(load_prod_sdf(device=cuda_device))
+    for mode, want in (("bf16", {"threads": 256, "smem_bytes": 100384, "blocks_per_sm": 2}),
+                       ("mixed", {"threads": 768, "smem_bytes": 207904, "blocks_per_sm": 1})):
+        geo = sdf_fused_bf16_geometry(mode, packed)
         print(f"{mode}: {geo}")
-        assert geo == {"threads": 512, "smem_bytes": smem, "blocks_per_sm": 1}
+        assert geo == want, mode
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bf16", "mixed"])
+@pytest.mark.parametrize("P", [1, 33, 97])
+def test_sdf_fused_bf16_kernel_ragged_tiles(cuda_device, monkeypatch, mode, P):
+    """The bf16 and mixed routes on the trained 4x256 net at P points that
+    leave a partial last tile (1; 33; 97, one past a multiple of both
+    tiles, 16 and 32 points; its rows come from device memory, not the bulk
+    copies): finite outputs of the right shape, each point equal bit for bit
+    to the same point evaluated among 160 others (a tile's points do not
+    mix; the embedding rows are the same for both, since torch's pos @ dirs
+    rounds by the batch size), and within SDF_BF16_RULE's max (2e-2 / 5e-2)
+    of the plain version."""
+    from sdf_nmpc_tpu_torch.nn.weights import load_prod_latents, load_prod_sdf
+    from sdf_nmpc_tpu_torch.ops import sdf_fused
+
+    rng = np.random.default_rng(61)
+    packed = sdf_fused.pack_neural_df_params(load_prod_sdf(device=cuda_device))
+    lat = load_prod_latents()
+    pos = t32(rng.normal(size=(160, 3)) * 1.5).to(cuda_device)
+    latent = t32(lat[rng.integers(0, lat.shape[0], 160)]).to(cuda_device)
+    emb, demb = sdf_fused.embed_with_tangents(packed["embed_fn"], pos)
+    monkeypatch.setattr(sdf_fused, "embed_with_tangents",
+                        lambda fn, x: (emb[: x.shape[0]], demb[: x.shape[0]]))
+    full = sdf_fused.sdf_value_grad(packed, pos, latent, mode=mode)
+    got = sdf_fused.sdf_value_grad(packed, pos[:P].contiguous(), latent[:P].contiguous(),
+                                   mode=mode)
+    monkeypatch.undo()
+    want = sdf_fused.PLAIN[mode](packed, pos[:P], latent[:P])
+    for g, f, w, mx in zip(got, full, want, (2e-2, 5e-2)):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert torch.equal(g, f[:P])
+        assert float((g - w).abs().max()) <= mx
 
 
 @pytest.mark.gpu
