@@ -4,8 +4,10 @@
     python3 chip_smoke.py          # from the repo root; one card, nvcc
 
 Two paths of BASELINE config 4 (att quad, N=20, the trained 4x256 NeuralDF
-of weights/, FoV rows, the condensed QP with nz=80, nc=63), and BASELINE
-config 1 (no SDF, nc=0; phase 15), run through
+of weights/, FoV rows, the condensed QP with nz=80, nc=63), BASELINE
+config 1 (no SDF, nc=0; phase 15) and config 4 with the formulation extras
+(the SDF cost row; recursive feasibility and stability, nc=68; phase 17),
+run through
 ``sdf_nmpc_tpu_torch``'s public entry points: the fused path (kernels 1-4,
 the default solver settings) and the composed QP path with
 ``solver.dual_warm_start`` (kernels 1-3 and 5-8), the latter also through
@@ -99,12 +101,32 @@ failure raises and exits non-zero before the result line:
    omnidirectional sensor (no hfov row; kernels 1-4 held against their
    plain versions) and the autodiff row (a seeded res='state' network;
    kernels 1, 3 and 4 held, kernel 2 not launched), the first 8 scenarios
-   of each against the port's f64 step on the CPU under the CI gate.
+   of each against the port's f64 step on the CPU under the CI gate;
+17. the formulation extras (``--formulation`` runs phases 1, 2 and this
+   one alone): the SDF stage cost row (``flags.sdf_cost``), whose wider
+   residual takes kernel 9 in place of kernel 1, kernel 9's att, acc and
+   att_tau instances against their plain version on one cold step at
+   B=1024 each (geometry and ptxas registers; acc's and att_tau's times at
+   the main path's 163,840 points, the step's inputs tiled), att's step
+   with kernels 3 and 4 held and its first 8 scenarios against the port's
+   f64 CPU step under the CI gate; recursive feasibility with stability
+   (the synthetic braking polynomial, r_tilde 1.0): one cold step at
+   B=1024 with kernels 1-4 held on every launch, kernel 4 at k_s = 48, its
+   8 cold scenarios against the oracle's recfeas_u0 under the CI gate, one
+   dual-warm-started cold step with kernels 5-8 held and timed, kernels 7
+   and 8 at k = 48; both paths at B=8192 as phase 6 (the largest power of
+   two that fits the card's memory, the cut printed), each with its busy
+   share and per-kernel numbers on a steady step's inputs (under sdf_cost
+   also the torch.func residual and stage rows through the network); the
+   ``Nmpc`` controller at B=1 built with ``bdist_coeffs`` and ``r_tilde``,
+   15 ticks.
 
 The last lines are the ``kernels`` JSON (all nine kernels, kernel 2 as one
 row per route, each with its per-launch times ``launch_ms``; the rows of
 kernels 1, 3 and 9 carry each model's numbers under ``per_model``, and at
-top level att's (props' for kernel 9); kernel 4's row ``launch_k_s`` and
+top level att's (for kernel 9 att's under sdf_cost); the rows of kernels
+1-8 that the formulation extras run carry those readings under
+``per_path``; kernel 4's row ``launch_k_s`` and
 ``geometry``, kernel 2's rows (f32, f32x3, bf16, mixed) and the
 rows of kernels 1, 3, 5, 7, 8 and 9 their ``geometry``; the ``launches`` of
 kernel 2's f32, bf16 and mixed rows come from the runs of phase 6 that
@@ -137,6 +159,8 @@ print no result line):
         phases 1, 2, 8 (without the kernel numbers) and 9: the composed main
         path and the ``Nmpc`` controller; copied into another tree, the same
         phases of that tree's package.
+    python3 chip_smoke.py --formulation
+        phases 1, 2 and 17: the formulation extras.
 """
 
 from __future__ import annotations
@@ -161,6 +185,7 @@ PER_STEP = {"lin_y_sens": 1, "erk4_sens": 0, "sdf_fused": 0, "sdf_fused_x3": 1,
             "sdf_fused_bf16": 0, "sdf_fused_mixed": 0, "condense": 1, "ip_phase": 2}
 ERK4_FAMILIES = ("rates", "wrench", "props")  # kernel 9
 LIN_FAMILIES = ("acc", "att_tau")  # kernel 1, as att
+SDF_COST_FAMILIES = ("att", "acc", "att_tau")  # kernel 9 in place of kernel 1 under sdf_cost
 NMPC_TICKS_PROPS = 15
 # composed path with dual_warm_start: one launch of kernel 5 and 6 per warm
 # IP iteration, of kernel 7 and 8 per stiff one; (warm, stiff) iterations
@@ -261,6 +286,16 @@ KKT_RULE = (1e-3, 0.03, 1e-4, 2e-2)
 # state field -> (index in the phase state, relative?, rule)
 IP_FIELDS = {"dz": (0, False, IP_RULE), "best_dz": (10, False, BEST_RULE),
              "best_m": (11, True, MERIT_RULE), "dz_tail_sum": (12, False, IP_RULE)}
+#  ip, formulation extras (phase 17): the iterates (dz, best_dz, the tail
+#       sum) as accurate as the plain version against f64 (held_as_plain),
+#       as phase 16 holds them: at recursive feasibility's stiff phase (k_s
+#       48, the hard terminal rows) the plain f32 dz itself lay up to 1.3
+#       from f64 and beyond 1e-4 on 18% of 1024 scenarios (an H100, the
+#       cold step's inputs; the kernel 1.5 and 17%); the best merit by
+#       MERIT_RULE against the plain version, since the plain f32 merit lay
+#       within 1.5e-5 of f64 there, which leaves held_as_plain's 4x bound
+#       below MERIT_RULE's own median.
+ILL_FIELDS = ("dz", "best_dz", "dz_tail_sum")
 #  kernels 5-8: every output of every launch of the composed path, per
 #       scenario the largest deviation over the largest magnitude of the
 #       output.  The late IP iterations factor Newton matrices with
@@ -635,11 +670,12 @@ def held_as_plain(label: str, got, want, ref64, scale) -> bool:
     return ok
 
 
-def check_ip(args, label: str, as_plain: bool = False) -> float:
+def check_ip(args, label: str, as_plain=False) -> float:
     """Kernel 4 on one launch against its plain version: dz, best_dz, the
     best merit and the tail sum under IP_FIELDS' rules, or with
     ``as_plain`` (phase 16) each as accurate as the plain version against
-    f64 (held_as_plain)."""
+    f64 (held_as_plain); ``as_plain`` a tuple of field names: those so
+    held, the others by their rules (phase 17, ILL_FIELDS)."""
     from sdf_nmpc_tpu_torch.ops import ip_kernel
 
     data, state, k_s, n_iters, it0, consts = args[:6]
@@ -654,7 +690,8 @@ def check_ip(args, label: str, as_plain: bool = False) -> float:
     for name, (i, relative, rule) in IP_FIELDS.items():
         scale = merit_scale(data, want[10]) if relative else None  # at the plain best_dz
         what = f"ip_phase    {label} (k_s={k_s}, {n_iters} iters) {name}"
-        if not (held_as_plain(what, got[i], want[i], ref64[i], scale) if as_plain else
+        plain_rule = name in as_plain if isinstance(as_plain, tuple) else as_plain
+        if not (held_as_plain(what, got[i], want[i], ref64[i], scale) if plain_rule else
                 held(what, got[i], want[i], ref64[i], scale, rule)):
             failed.append(name)
     if failed:
@@ -662,7 +699,7 @@ def check_ip(args, label: str, as_plain: bool = False) -> float:
     return max_abs(got[0], want[0])
 
 
-def check_fused_solve(call, label: str, as_plain: bool = False) -> float:
+def check_fused_solve(call, label: str, as_plain=False) -> float:
     """The whole fused solve, both kernel launches then the best-iterate
     choice, the tail average and the KKT residual, against the same solve
     with the plain phases, on one captured QP; ``as_plain`` as check_ip."""
@@ -690,7 +727,7 @@ def check_fused_solve(call, label: str, as_plain: bool = False) -> float:
     return max_abs(got.dz, want.dz)
 
 
-def check_all(cap: Capture, label: str, as_plain: bool = False) -> dict:
+def check_all(cap: Capture, label: str, as_plain=False) -> dict:
     """Kernels 1, 3 and 4 (each launch and the whole fused solve; see
     check_ip for ``as_plain``) and, where the step called it, kernel 2 by
     its four routes, against their plain versions on the captured inputs."""
@@ -820,7 +857,7 @@ def check_qp_kernel(name, calls, label, ds_inv=None) -> float:
     return err
 
 
-def check_composed_solve(call, label: str, as_plain: bool = False) -> float:
+def check_composed_solve(call, label: str, as_plain=False) -> float:
     """The whole composed solve, kernels 5-8 with the torch glue around
     them, against the same solve with the plain versions, on one captured
     QP (warm duals included).  ``as_plain`` (config 1's box-only QP, nc =
@@ -830,7 +867,10 @@ def check_composed_solve(call, label: str, as_plain: bool = False) -> float:
     about the box-constrained optimum (solver/qp.py's tail-average
     comment), the plain f32 solve itself lying beyond 1e-4 of f64 on 3.7%
     of the scenarios of one B=1024 cold step, the kernels' solve on as
-    many, at other scenarios."""
+    many, at other scenarios.  ``as_plain`` a tuple of names ("dz",
+    "kkt"): those so held (phase 17: at recursive feasibility's k = 48 the
+    plain f32 KKT residual itself lay beyond 1e-3 of f64 on 57% of 1024
+    scenarios, on an H100), the others by their rules."""
     from sdf_nmpc_tpu_torch.solver import QpData, QpDuals, solve_qp
 
     (qp,), kw = call
@@ -842,20 +882,25 @@ def check_composed_solve(call, label: str, as_plain: bool = False) -> float:
             kw64["warm_duals"] = QpDuals(*[t.double() for t in kw["warm_duals"]])
         ref64 = solve_qp(QpData(*[t.double() for t in qp]), **kw64)
     same_finite(f"composed solve {label}", got[:3], want[:3])
-    if as_plain:
+    plain_dz = "dz" in as_plain if isinstance(as_plain, tuple) else as_plain
+    if plain_dz:
         ok_dz = held_as_plain(f"composed solve {label} selected dz", got.dz, want.dz, ref64.dz,
                               None)
     else:
         ok_dz = held(f"composed solve {label} selected dz", got.dz, want.dz, ref64.dz, None,
                      BEST_RULE)
-    ok_kkt = held(f"composed solve {label} kkt", got.kkt_residual, want.kkt_residual,
-                  ref64.kkt_residual, kkt_scale(qp, want), KKT_RULE)
+    if isinstance(as_plain, tuple) and "kkt" in as_plain:
+        ok_kkt = held_as_plain(f"composed solve {label} kkt", got.kkt_residual,
+                               want.kkt_residual, ref64.kkt_residual, kkt_scale(qp, want))
+    else:
+        ok_kkt = held(f"composed solve {label} kkt", got.kkt_residual, want.kkt_residual,
+                      ref64.kkt_residual, kkt_scale(qp, want), KKT_RULE)
     if not (ok_dz and ok_kkt):
         raise AssertionError(f"composed solve {label} disagrees with the plain versions")
     return max_abs(got.dz, want.dz)
 
 
-def check_composed(cap: Capture, label: str, as_plain: bool = False) -> dict:
+def check_composed(cap: Capture, label: str, as_plain=False) -> dict:
     errs = {name: check_qp_kernel(name, cap.args(name), label,
                                   paired_ds_inv(cap) if name == "stiff_resolve" else None)
             for name in COMPOSED_KERNELS if cap.args(name)}
@@ -1254,19 +1299,20 @@ def phase_accuracy_bf16(dev) -> dict:
 
 
 def phase_main_path(dev, card, over=None, per_step=None, label="fused path", model=None,
-                    variant="sdf"):
-    """B=MAIN_B, one cold step then N_STEADY chained steady steps ended by
-    one synchronize, launch counts set to 0 just before and read just
-    after.  ``over``: solver overrides; ``per_step(steps)``: the launch
-    count each kernel must reach; ``model``: a quad family other than att;
-    ``variant``: 'nosdf' for BASELINE config 1."""
+                    variant="sdf", B=MAIN_B):
+    """B scenarios (MAIN_B), one cold step then N_STEADY chained steady
+    steps ended by one synchronize, launch counts set to 0 just before and
+    read just after.  ``over``: solver overrides; ``per_step(steps)``: the
+    launch count each kernel must reach; ``model``: a quad family other
+    than att; ``variant``: accuracy.build_setup's ('nosdf' for BASELINE
+    config 1, 'recfeas' and 'sdf_cost' for the formulation extras)."""
     from sdf_nmpc_tpu_torch.ops import _lib
     from sdf_nmpc_tpu_torch.solver import init_state, make_rti_step
     from sdf_nmpc_tpu_torch.utils import accuracy
 
     cfg, ocp, layout, _ = accuracy.build_setup(device=dev, solver_over=over, model=model,
                                                variant=variant)
-    inputs = bench_inputs(ocp, cfg, layout, MAIN_B, SEED, dev)
+    inputs = bench_inputs(ocp, cfg, layout, B, SEED, dev)
     cold = make_rti_step(ocp, cfg, budget="cold", with_evals=False)
     steady = make_rti_step(ocp, cfg, budget="steady", with_evals=False)
     dws = bool(cfg.solver.get("dual_warm_start", False))
@@ -1292,26 +1338,26 @@ def phase_main_path(dev, card, over=None, per_step=None, label="fused path", mod
     peak = torch.cuda.max_memory_allocated()
 
     steps = N_STEADY + 1
-    log(f"{label}: B={MAIN_B}, 1 cold + {N_STEADY} steady steps; launches "
+    log(f"{label}: B={B}, 1 cold + {N_STEADY} steady steps; launches "
         f"{ {k: v for k, v in counts.items() if v} }, per step "
         f"{ {k: round(v / steps, 3) for k, v in counts.items() if v} }")
     for name, want in per_step(steps).items():
         if counts[name] != want:
             raise AssertionError(f"{label}: {name} launched {counts[name]} times, expected {want}")
-    if n_ok_cold != MAIN_B:
-        raise AssertionError(f"{label}: cold step: only {n_ok_cold}/{MAIN_B} scenarios OK")
+    if n_ok_cold != B:
+        raise AssertionError(f"{label}: cold step: only {n_ok_cold}/{B} scenarios OK")
     n_ok = int((res.status == 0).sum())
-    if n_ok != MAIN_B:
-        raise AssertionError(f"{label}: last steady step: only {n_ok}/{MAIN_B} scenarios OK")
+    if n_ok != B:
+        raise AssertionError(f"{label}: last steady step: only {n_ok}/{B} scenarios OK")
     X, U = res.state.X, res.state.U
-    if X.shape != (MAIN_B, ocp.N + 1, ocp.nx) or U.shape != (MAIN_B, ocp.N, ocp.nu):
+    if X.shape != (B, ocp.N + 1, ocp.nx) or U.shape != (B, ocp.N, ocp.nu):
         raise AssertionError(f"unexpected state shapes {tuple(X.shape)}, {tuple(U.shape)}")
     if not (torch.isfinite(X).all() and torch.isfinite(U).all()):
         raise AssertionError("non-finite trajectories")
     if dws and res.state.qp_duals is None:
         raise AssertionError(f"{label}: the state carries no duals")
     log(f"{label}: {N_STEADY} chained steady steps in {span * 1e3:.3f} ms: "
-        f"{t_step * 1e3:.3f} ms/step, {MAIN_B * N_STEADY / span:.1f} solves/s; the host "
+        f"{t_step * 1e3:.3f} ms/step, {B * N_STEADY / span:.1f} solves/s; the host "
         f"issued them in {issued * 1e3:.3f} ms ({issued / N_STEADY * 1e3:.3f} ms/step, "
         f"{issued / span:.1%} of the span); peak memory {peak / 2**30:.3f} GiB; card {card}")
 
@@ -1500,17 +1546,22 @@ def condense_geometry_row(args, card) -> dict:
                         instance, card)
 
 
+# the model of each instance id of csrc/lin_y_sens.cu and csrc/erk4_sens.cu
+LIN_IDS = ("att", "acc", "att_tau")
+ERK4_IDS = ("rates", "wrench", "props", "att", "acc", "att_tau")
+
+
 def lin_geometry_row(args, card) -> dict:
     from sdf_nmpc_tpu_torch.ops import lin_kernels
 
-    instance = ("att", "acc", "att_tau")[args[0].kernel_model[1]]  # csrc/lin_y_sens.cu's ids
+    instance = LIN_IDS[dict(args[0].kernel_ids)["lin_y_sens"]]
     return geometry_row("lin_y_sens", lin_kernels.lin_y_sens_geometry(args[0]), instance, card)
 
 
 def erk4_geometry_row(args, card) -> dict:
     from sdf_nmpc_tpu_torch.ops import lin_kernels
 
-    instance = ("rates", "wrench", "props")[args[0].kernel_model[1]]  # csrc/erk4_sens.cu's ids
+    instance = ERK4_IDS[dict(args[0].kernel_ids)["erk4_sens"]]
     return geometry_row("erk4_sens", lin_kernels.erk4_sens_geometry(args[0]), instance, card)
 
 
@@ -1618,8 +1669,9 @@ def phase_profile(steady, state, inputs, t_step, card, label="fused path"):
 def phase_nmpc(dev, card, ticks=31, model=None, over=DWS, variant="sdf"):
     """The Nmpc controller at B=1 (att with dual_warm_start, or ``model``
     with ``over``), the trained SDF and a latent (``variant`` 'nosdf':
-    BASELINE config 1, no network), RefGen waypoints, each tick fed the
-    predicted next state."""
+    BASELINE config 1, no network; 'recfeas': built from the network,
+    ``bdist_coeffs`` and ``r_tilde``), RefGen waypoints, each tick fed the
+    predicted next state; every node's diagnostics finite."""
     from sdf_nmpc_tpu_torch.controller import Nmpc
     from sdf_nmpc_tpu_torch.nn.weights import load_prod_latents
     from sdf_nmpc_tpu_torch.ops import _lib
@@ -1630,7 +1682,14 @@ def phase_nmpc(dev, card, ticks=31, model=None, over=DWS, variant="sdf"):
                                           variant=variant)
     if variant == "nosdf" and ocp.sdf is not None:
         raise AssertionError("config 1's OCP carries a network")
-    nmpc, gen = Nmpc(cfg, ocp=ocp), RefGen(cfg)
+    if variant == "recfeas":  # the controller builds the OCP from its arguments
+        nmpc = Nmpc(cfg, sdf=ocp.sdf, sdf_max_df=1.0,
+                    bdist_coeffs=accuracy.synthetic_bdist_coeffs(cfg), r_tilde=1.0, device=dev)
+        if nmpc.ocp.nhN != ocp.nhN or nmpc.ocp.eval_names != ocp.eval_names:
+            raise AssertionError("Nmpc built another recursive-feasibility OCP")
+    else:
+        nmpc = Nmpc(cfg, ocp=ocp)
+    gen = RefGen(cfg)
     latent = load_prod_latents()[0]
     x = np.zeros(ocp.nx)
     x[3] = 1.0
@@ -1652,11 +1711,16 @@ def phase_nmpc(dev, card, ticks=31, model=None, over=DWS, variant="sdf"):
         for cmd, lo, hi in cmds:
             if not (np.isfinite(cmd).all() and (cmd >= lo).all() and (cmd <= hi).all()):
                 raise AssertionError(f"Nmpc: command {cmd} not finite or outside [{lo}, {hi}]")
+        evals = np.asarray([nmpc.eval(k) for k in range(ocp.N + 1)])
+        if evals.shape[-1] != max(len(ocp.eval_names), 1) or not np.isfinite(evals).all():
+            raise AssertionError(f"Nmpc: diagnostics {ocp.eval_names} of shape {evals.shape} "
+                                 "not finite")
         x = nmpc.get_matrices()[0][1]  # the plant follows the prediction
     counts = dict(_lib.launch_counts)
     ms = np.asarray(times[1:]) * 1e3
     dws = bool(cfg.solver.get("dual_warm_start", False))
-    label = (f"Nmpc, {model or 'att'}{', config 1 (no SDF)' if variant == 'nosdf' else ''}, B=1, "
+    what = {"nosdf": ", config 1 (no SDF)", "recfeas": ", recursive feasibility + stability"}
+    label = (f"Nmpc, {model or 'att'}{what.get(variant, '')}, B=1, "
              f"{'dual warm start' if dws else 'default settings'}")
     if dws:  # one more tick's launches of kernels 5-8, each timed by CUDA events
         from sdf_nmpc_tpu_torch.ops import qp_kernels
@@ -1685,10 +1749,7 @@ def phase_nmpc(dev, card, ticks=31, model=None, over=DWS, variant="sdf"):
     else:
         used = [lin, "sdf_fused_x3", "condense",
                 *(list(COMPOSED_KERNELS) if dws else ["ip_phase"])]
-    missing = [k for k in used if not counts[k]]
-    extra = [k for k in KERNELS if k not in used and counts[k]]
-    if missing or extra:
-        raise AssertionError(f"{label}: kernels not launched {missing}, or launched {extra}")
+    launched_only(label, counts, used)
 
 
 def phase_batched(dev, card):
@@ -1839,7 +1900,7 @@ def kernel_row_per_model(rows: dict, top: str) -> dict:
     """One ``kernels`` row of a kernel run by several models: ``top``'s
     numbers at top level, every model's under ``per_model``."""
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "residual_rows_ms", "geometry")
+            "residual_rows_ms", "stage_rows_ms", "geometry", "points", "launches_from", "B")
     row = {k: v for k, v in rows[top].items() if k != "residual_rows_ms"}
     row["per_model"] = {m: {k: r[k] for k in keys if k in r} for m, r in rows.items()}
     return row
@@ -1928,15 +1989,13 @@ def phase_other_rows(dev, card) -> dict:
     phase 0.15 from f64 and the kernel 0.034 from the plain version, beyond
     IP_RULE's flat 1e-2.  The first OTHER_SCEN scenarios of each against
     the port's f64 step on the CPU on the same inputs, under the CI gate."""
-    import copy
-
     from sdf_nmpc_tpu_torch.config import default_config
     from sdf_nmpc_tpu_torch.nn import NeuralDF
     from sdf_nmpc_tpu_torch.nn.weights import load_prod_latents, load_prod_sdf
     from sdf_nmpc_tpu_torch.ocp import build_ocp
     from sdf_nmpc_tpu_torch.ops import _lib
     from sdf_nmpc_tpu_torch.params import ParamLayout
-    from sdf_nmpc_tpu_torch.solver import SolveInputs, init_state, make_rti_step
+    from sdf_nmpc_tpu_torch.solver import init_state, make_rti_step
     from sdf_nmpc_tpu_torch.utils import accuracy as acc
 
     prod = load_prod_sdf(require_latent=acc.LATENT, require_layers=acc.LAYERS, device=dev)
@@ -1956,31 +2015,321 @@ def phase_other_rows(dev, card) -> dict:
         with Capture() as cap:
             res = make_rti_step(ocp, cfg, budget="cold", with_evals=False)(
                 init_state(ocp, inputs.x0), inputs)
-        counts = dict(_lib.launch_counts)
         used = ["lin_y_sens", "condense", "ip_phase"] + (["sdf_fused_x3"] if sdf_kernel else [])
-        missing = [k for k in used if not counts[k]]
-        extra = [k for k in KERNELS if k not in used and counts[k]]
-        log(f"{label}: launches {({k: v for k, v in counts.items() if v})}")
-        if missing or extra or bool(cap.args("sdf")) != sdf_kernel:
-            raise AssertionError(f"{label}: kernels not launched {missing}, or launched {extra}")
+        launched_only(label, dict(_lib.launch_counts), used)
+        if bool(cap.args("sdf")) != sdf_kernel:
+            raise AssertionError(f"{label}: kernel 2 called {len(cap.args('sdf'))} times")
         n_ok = int((res.status == 0).sum())
         if n_ok != CHECK_B or not torch.isfinite(res.u0).all():
             raise AssertionError(f"{label}: {n_ok}/{CHECK_B} scenarios OK")
         check_all(cap, label, as_plain=True)
-        cfg64 = cfg.replace(solver=dict(dtype="float64"))
-        ocp64 = build_ocp(cfg64, sdf=copy.deepcopy(net).double().cpu(), device="cpu")
-        few = SolveInputs(*[t[:OTHER_SCEN].double().cpu() for t in inputs])
-        ref = make_rti_step(ocp64, cfg64, budget="cold", with_evals=False)(
-            init_state(ocp64, few.x0, torch.float64), few)
-        err = (res.u0[:OTHER_SCEN].double().cpu() - ref.u0).abs().amax(-1).numpy()
-        ok = bool((ref.status == 0).all()) and acc.ci_gate_ok(err.mean(), err.max())
-        log(f"{label}: the first {OTHER_SCEN} scenarios against the f64 CPU step: u0 mean "
-            f"{err.mean():.3e} max {err.max():.3e}, CI gate {'pass' if ok else 'FAIL'}; "
-            f"card {card}")
-        if not ok:
-            raise AssertionError(f"{label}: gate against the f64 step failed")
-        report[label] = {"u0_max_err": float(err.max()), "u0_mean_err": float(err.mean())}
+        report[label] = against_f64_step(label, ocp, cfg, inputs, res, card)
     return report
+
+
+def recfeas_per_step(steps):
+    """Recursive feasibility on the fused path: kernels 1-4 as the main
+    path's, kernel 4's stiff phase at k_s = 48; no other kernel."""
+    return {**{name: 0 for name in KERNELS}, **fused_per_step(steps)}
+
+
+def sdf_cost_per_step(steps):
+    """sdf_cost on the fused QP path: kernel 9 (not kernel 1) once a step,
+    no kernel 2 (the SDF reaches the residual, differentiated by
+    torch.func), kernel 3 once and kernel 4 twice a step; no other kernel."""
+    return {**{name: 0 for name in KERNELS}, "erk4_sens": steps, "condense": steps,
+            "ip_phase": 2 * steps}
+
+
+def launched_only(label, counts, used):
+    """Every kernel of ``used`` launched, none other."""
+    missing = [k for k in used if not counts[k]]
+    extra = [k for k in KERNELS if k not in used and counts[k]]
+    log(f"{label}: launches {({k: v for k, v in counts.items() if v})}")
+    if missing or extra:
+        raise AssertionError(f"{label}: kernels not launched {missing}, or launched {extra}")
+
+
+def against_f64_step(label, ocp, cfg, inputs, res, card) -> dict:
+    """The first OTHER_SCEN scenarios of a card step's u0 against the
+    port's f64 step on the CPU on the same inputs, under the CI gate."""
+    import copy
+
+    from sdf_nmpc_tpu_torch.ocp import build_ocp
+    from sdf_nmpc_tpu_torch.solver import SolveInputs, init_state, make_rti_step
+    from sdf_nmpc_tpu_torch.utils import accuracy as acc
+
+    cfg64 = cfg.replace(solver=dict(dtype="float64"))
+    ocp64 = build_ocp(cfg64, sdf=copy.deepcopy(ocp.sdf).double().cpu(), device="cpu")
+    few = SolveInputs(*[t[:OTHER_SCEN].double().cpu() for t in inputs])
+    ref = make_rti_step(ocp64, cfg64, budget="cold", with_evals=False)(
+        init_state(ocp64, few.x0, torch.float64), few)
+    err = (res.u0[:OTHER_SCEN].double().cpu() - ref.u0).abs().amax(-1).numpy()
+    ok = bool((ref.status == 0).all()) and acc.ci_gate_ok(err.mean(), err.max())
+    log(f"{label}: the first {OTHER_SCEN} scenarios against the f64 CPU step: u0 mean "
+        f"{err.mean():.3e} max {err.max():.3e}, CI gate {'pass' if ok else 'FAIL'}, strict <= "
+        f"{acc.CONTRACT_MAX}: {'pass' if err.max() <= acc.CONTRACT_MAX else 'miss'}; card {card}")
+    if not ok:
+        raise AssertionError(f"{label}: gate against the f64 step failed")
+    return {"u0_max_err": float(err.max()), "u0_mean_err": float(err.mean()),
+            "accuracy_ok": bool(err.max() <= acc.CONTRACT_MAX)}
+
+
+def ip_launch_rows(row, calls, card, label):
+    """Kernel 4's row: per launch its k_s and launch geometry beside its time."""
+    from sdf_nmpc_tpu_torch.ops import ip_kernel
+
+    row["launch_k_s"] = [a[2] for a in calls]
+    row["geometry"] = []
+    for a, ms in zip(calls, row["launch_ms"]):
+        geo = ip_kernel.ip_phase_geometry(a[0][0].shape[-1], a[0][1].shape[1], a[2])
+        row["geometry"].append(geo)
+        log(f"  {label}: ip_phase launch (nz, nc, k_s) = ({a[0][0].shape[-1]}, "
+            f"{a[0][1].shape[1]}, {a[2]}), {a[3]} iterations: {ms:.4f} ms; {geo['threads']} "
+            f"threads and {geo['smem_bytes']} B of shared memory per block, "
+            f"{geo['blocks_per_sm']} blocks per SM; card {card}")
+    return row
+
+
+def erk4_sdf_cost_check(dev, card, model):
+    """Kernel 9's instance of ``model`` on one cold sdf_cost step at
+    B=CHECK_B: launches (kernels 9, 3 and 4 only), every scenario OK, kernel
+    9 against its plain version under ERK4_TOL, its launch geometry and
+    ptxas registers.  Returns (cfg, ocp, inputs, result, capture, error,
+    geometry)."""
+    from sdf_nmpc_tpu_torch.ops import _lib
+    from sdf_nmpc_tpu_torch.solver import init_state, make_rti_step
+    from sdf_nmpc_tpu_torch.utils import accuracy as acc
+
+    cfg, ocp, layout, lat = acc.build_setup(device=dev, model=None if model == "att" else model,
+                                            variant="sdf_cost")
+    inputs = tiled_inputs(ocp, cfg, layout, lat, CHECK_B, SEED, dev)
+    label = f"sdf_cost, {model}"
+    log(f"{label} (ny = {ocp.ny} against the model's {ocp.model.ny}, nh = {ocp.nh}, nhN = "
+        f"{ocp.nhN}): one cold step, B={CHECK_B} jittered accuracy scenarios")
+    _lib.reset_launch_counts()
+    with Capture() as cap:
+        res = make_rti_step(ocp, cfg, budget="cold", with_evals=False)(
+            init_state(ocp, inputs.x0), inputs)
+    launched_only(label, dict(_lib.launch_counts), ["erk4_sens", "condense", "ip_phase"])
+    if len(cap.args("erk4_sens")) != 1 or cap.args("sdf"):
+        raise AssertionError(f"{label}: kernel 9 called {len(cap.args('erk4_sens'))} times, "
+                             f"kernel 2 {len(cap.args('sdf'))} times; expected 1 and 0")
+    n_ok = int((res.status == 0).sum())
+    if n_ok != CHECK_B or not torch.isfinite(res.u0).all():
+        raise AssertionError(f"{label}: {n_ok}/{CHECK_B} scenarios OK")
+    args = cap.args("erk4_sens")[0]
+    return cfg, ocp, inputs, res, cap, check_erk4(args), erk4_geometry_row(args, card)
+
+
+def torch_func_ms(dev, X, U, P, card, label) -> dict:
+    """Under sdf_cost the step differentiates the residual (14 forward
+    tangents through the network) and the stage constraint rows (reverse
+    mode, 3 rows) by torch.func around kernel 9: the time of each on the
+    steady step's M points (CUDA events)."""
+    import copy
+
+    from torch.func import jacfwd, jacrev, vmap
+
+    from sdf_nmpc_tpu_torch.utils import accuracy as acc
+
+    _, ocp, _, _ = acc.build_setup(device=dev, variant="sdf_cost")
+    net = copy.deepcopy(ocp.sdf).float().requires_grad_(False)
+
+    def y_node(x, u, p):
+        y_fn = lambda xv, uv: ocp.y(xv, uv, p, net)
+        return (y_fn(x, u),) + tuple(jacfwd(y_fn, argnums=(0, 1))(x, u))
+
+    h_rows = vmap(jacrev(lambda x, u, p: ocp.h_stage(x, u, p, net), argnums=(0, 1)))
+    out = {"residual_rows_ms": cuda_ms(lambda: vmap(y_node)(X, U, P), reps=3),
+           "stage_rows_ms": cuda_ms(lambda: h_rows(X, U, P), reps=3)}
+    log(f"  {label}: by torch.func through the network, M={X.shape[0]}: the residual rows "
+        f"and their Jacobians (vmap of jacfwd of y) {out['residual_rows_ms']:.3f} ms, the "
+        f"{ocp.nh} stage rows' (vmap of jacrev) {out['stage_rows_ms']:.3f} ms per step; "
+        f"card {card}")
+    return out
+
+
+def phase_formulation(dev, card) -> dict:
+    """The formulation extras (phase 17): sdf_cost through kernel 9's att,
+    acc and att_tau instances; recursive feasibility and stability through
+    kernel 4 at the wide stiff split (k_s = 48) and kernels 7-8 at k = 48.
+    Returns the rows and readings for the kernels line and the report."""
+    from sdf_nmpc_tpu_torch.ops import (
+        _lib,
+        condense_kernel,
+        ip_kernel,
+        lin_kernels,
+        qp_kernels,
+        sdf_fused,
+    )
+    from sdf_nmpc_tpu_torch.solver import init_state, make_rti_step
+    from sdf_nmpc_tpu_torch.solver.sqp import _budget_knobs
+    from sdf_nmpc_tpu_torch.utils import accuracy as acc
+
+    part, peaks = card_peaks(card.split(",")[0])
+    report, out = {}, {"erk4_sens": {}, "per_path": {}}
+    erk4_run = (lin_kernels.erk4_sens, lambda a: lin_kernels.erk4_sens_plain(*a), erk4_cost,
+                None)
+
+    # -- sdf_cost: kernel 9's three instances, and att's step held
+    for model in SDF_COST_FAMILIES:
+        cfg, ocp, inputs, res, cap, err, geo = erk4_sdf_cost_check(dev, card, model)
+        if model == "att":  # kernels 3 and 4 held, the step against the f64 CPU step
+            for a in cap.args("condense"):
+                check_condense(a)
+            for i, a in enumerate(cap.args("ip_phase")):
+                check_ip(a, f"sdf_cost launch {i}", as_plain=ILL_FIELDS)
+            for c in cap.calls["solve_qp"]:
+                check_fused_solve(c, "sdf_cost", as_plain=True)
+            report["sdf_cost"] = against_f64_step("sdf_cost, att", ocp, cfg, inputs, res, card)
+            continue
+        # acc and att_tau: kernel 9's numbers at the main path's point count,
+        # the check step's inputs tiled
+        spec, X, U, dt = cap.args("erk4_sens")[0]
+        reps = MAIN_B // CHECK_B
+        big = (spec, X.repeat(reps, 1), U.repeat(reps, 1), dt.repeat(reps))
+        log(f"kernel numbers, sdf_cost, {model}: kernel 9 on the check step's inputs tiled to "
+            f"{big[1].shape[0]} points")
+        row = kernel_rows({"erk4_sens": erk4_run}, {"erk4_sens": [big]},
+                          {"erk4_sens": len(cap.args("erk4_sens"))},
+                          {"erk4_sens": max(err, check_erk4(big))}, peaks, part)[0]
+        row.update(geometry=geo, points=int(big[1].shape[0]),
+                   launches_from=f"one cold sdf_cost step at B={CHECK_B}")
+        out["erk4_sens"][model] = row
+        del cap, res, inputs
+
+    # -- recursive feasibility + stability, fused path
+    cfg, ocp, layout, lat = acc.build_setup(device=dev, variant="recfeas")
+    nc = ocp.N * ocp.nh + ocp.nhN
+    inputs = tiled_inputs(ocp, cfg, layout, lat, CHECK_B, SEED, dev)
+    log(f"recfeas (nh = {ocp.nh}, nhN = {ocp.nhN}: nc = {nc}; budgets "
+        f"{ {b: _budget_knobs(cfg, b)[:3] for b in ('cold', 'warm', 'steady')} } as (iterations, "
+        f"k_stiff, stiff iterations)): one cold step, B={CHECK_B} jittered accuracy scenarios")
+    _lib.reset_launch_counts()
+    with Capture() as cap:
+        res = make_rti_step(ocp, cfg, budget="cold", with_evals=False)(
+            init_state(ocp, inputs.x0), inputs)
+    launched_only("recfeas", dict(_lib.launch_counts),
+                  ["lin_y_sens", "sdf_fused_x3", "condense", "ip_phase"])
+    k_s = [a[2] for a in cap.args("ip_phase")]
+    if k_s != [0, 48] or nc != 68:
+        raise AssertionError(f"recfeas: kernel 4 launched at k_s {k_s}, nc {nc}; expected "
+                             "[0, 48] and 68")
+    # the hard terminal rows (penalty 1e3 / 1e4) leave ill-conditioned
+    # phases: kernel 4's iterates and the solve are held as phase 16 holds
+    # them (ILL_FIELDS)
+    check_all(cap, "recfeas", as_plain=ILL_FIELDS)
+    cold = acc.check_accuracy(device=dev, variant="recfeas")
+    ok = cold["n_ok"] == cold["n_scen"] and acc.ci_gate_ok(cold["u0_mean_err"],
+                                                            cold["u0_max_err"])
+    log(f"accuracy recfeas cold vs oracle recfeas_u0: u0 mean {cold['u0_mean_err']:.3e} max "
+        f"{cold['u0_max_err']:.3e}, {cold['n_ok']}/{cold['n_scen']} status OK, CI gate "
+        f"{'pass' if ok else 'FAIL'}, strict <= {acc.CONTRACT_MAX}: "
+        f"{'pass' if cold['u0_max_err'] <= acc.CONTRACT_MAX else 'miss'}; card {card}")
+    if not ok:
+        raise AssertionError("accuracy recfeas: gate failed")
+    report["recfeas"] = {"u0_max_err": cold["u0_max_err"], "u0_mean_err": cold["u0_mean_err"],
+                         "accuracy_ok": bool(cold["u0_max_err"] <= acc.CONTRACT_MAX)}
+    del cap, res, inputs
+
+    # -- recursive feasibility on the composed path: kernels 7-8 at k = 48
+    cfg, ocp, layout, lat = acc.build_setup(device=dev, variant="recfeas", solver_over=DWS)
+    inputs = tiled_inputs(ocp, cfg, layout, lat, CHECK_B, SEED, dev)
+    iters, k, stiff, _ = _budget_knobs(cfg, "cold")
+    want = {"factor_solve": iters - stiff, "solve": iters - stiff, "stiff_factor_solve": stiff,
+            "stiff_resolve": stiff}
+    log(f"recfeas, composed path (dual warm start): one cold step, B={CHECK_B}, {iters} "
+        f"iterations, the last {stiff} at k = {k}")
+    with Capture() as cap:
+        make_rti_step(ocp, cfg, budget="cold", with_evals=False)(
+            init_state(ocp, inputs.x0, dual_warm_start=True), inputs)
+    got = {name: len(cap.args(name)) for name in COMPOSED_KERNELS}
+    ks = {a[2].shape[1] for a in cap.args("stiff_factor_solve")}
+    if got != want or cap.args("ip_phase") or ks != {48}:
+        raise AssertionError(f"recfeas composed: launches {got} at k {ks}, expected {want} at "
+                             "k 48 and no ip_phase")
+    errs = check_composed(cap, "recfeas composed", as_plain=("dz", "kkt"))
+    runs = {name: (getattr(qp_kernels, name),
+                   lambda a, _p=getattr(qp_kernels, f"{name}_plain"): _p(*a),
+                   lambda a, _n=name: qp_cost(_n, a), library_call(name))
+            for name in COMPOSED_KERNELS}
+    log(f"kernel numbers, recfeas composed path: the launches of that cold step, B={CHECK_B}")
+    rows = kernel_rows(runs, {name: cap.args(name) for name in COMPOSED_KERNELS}, got, errs,
+                       peaks, part)
+    for row in rows:
+        if row["name"].startswith("stiff"):
+            a = cap.args(row["name"])[0]
+            size = ((a[0].shape[-1], a[1].shape[1], a[2].shape[1])
+                    if row["name"] == "stiff_factor_solve"
+                    else (a[0].shape[-1], a[4].shape[1], a[3].shape[1]))
+            row["geometry"] = getattr(qp_kernels, f"{row['name']}_geometry")(*size)
+            log(f"  {row['name']} (n, r, k = {size}): {row['geometry']}")
+        out["per_path"].setdefault(row["name"], {})[f"recfeas composed, cold, B={CHECK_B}"] = row
+    del cap, inputs
+
+    # -- the two paths at full width
+    lin_run = (lin_kernels.lin_y_sens, lambda a: lin_kernels.lin_y_sens_plain(a[0], *a[2:]),
+               lin_cost, None)
+    x3 = (lambda *a: sdf_fused.sdf_value_grad(*a, mode="f32x3"),
+          lambda a, _p=sdf_plain("sdf_fused_x3"): _p(*a), sdf_cost, None)
+    cond_run = (condense_kernel.condense, lambda a: condense_kernel.condense_plain(*a),
+                condense_cost, None)
+    ip_run = (ip_kernel.ip_phase, lambda a: ip_kernel.ip_phase_plain(*a), ip_cost, None)
+    for variant, per_step, path_runs in (
+            ("recfeas", recfeas_per_step, {"lin_y_sens": lin_run, "sdf_fused_x3": x3,
+                                           "condense": cond_run, "ip_phase": ip_run}),
+            ("sdf_cost", sdf_cost_per_step, {"erk4_sens": erk4_run, "condense": cond_run,
+                                             "ip_phase": ip_run})):
+        label, B = f"{variant} path", MAIN_B
+        while True:  # the largest power of two that fits the card's memory
+            try:
+                counts, t_step, steady, state, inputs = phase_main_path(
+                    dev, card, per_step=per_step, label=label, variant=variant, B=B)
+                break
+            except torch.cuda.OutOfMemoryError:
+                torch.cuda.empty_cache()
+                log(f"{label}: B={B} does not fit in the card's memory; cut to B={B // 2}")
+                B //= 2
+        phase_profile(steady, state, inputs, t_step, card, label=label)
+        with Capture() as cap:
+            steady(state, inputs)
+        calls = {name: cap.args("sdf" if name == "sdf_fused_x3" else name) for name in path_runs}
+        log(f"kernel numbers, {label}: inputs of one steady step at B={B}")
+        # kernel 4 here by the whole fused solve (both launches, the best
+        # iterate, the tail average; as phase 16 holds it): at B=8192 one
+        # scenario's warm-phase iterate of the recursive-feasibility QP lay
+        # 2.6e-2 from f64, the plain version's worst 6.0e-3 (an H100), beyond
+        # every per-launch rule's max while their shares and medians agreed;
+        # each launch is held at B=1024 above and by the card tests
+        errs = {"condense": max(check_condense(a) for a in calls["condense"]),
+                "ip_phase": max(check_fused_solve(c, label, as_plain=True)
+                                for c in cap.calls["solve_qp"])}
+        if variant == "recfeas":
+            errs["lin_y_sens"] = max(check_lin(a) for a in calls["lin_y_sens"])
+            errs["sdf_fused_x3"] = check_sdf_routes(cap)["sdf_fused_x3"]
+        else:
+            errs["erk4_sens"] = max(check_erk4(a) for a in calls["erk4_sens"])
+        rates = {"sdf_fused_x3": (3.0, TF32_PEAKS[part])}
+        rows = kernel_rows(path_runs, calls, counts, errs, peaks, part, rates)
+        for row in rows:
+            row.update(B=B, t_step_ms=t_step * 1e3)
+            if row["name"] == "ip_phase":
+                ip_launch_rows(row, calls["ip_phase"], card, label)
+            if row["name"] == "erk4_sens":
+                row["geometry"] = erk4_geometry_row(calls["erk4_sens"][0], card)
+                _, X, U, _ = calls["erk4_sens"][0]
+                P = inputs.p[:, :-1].reshape(X.shape[0], -1)
+                row.update(torch_func_ms(dev, X, U, P, card, label))
+                out["erk4_sens"]["att"] = row
+            out["per_path"].setdefault(row["name"], {})[f"{variant}, steady, B={B}"] = row
+        report[f"{variant} main path"] = {"B": B, "ms_per_step": t_step * 1e3,
+                                         "solves_per_s": B / t_step}
+        del steady, state, inputs, cap
+    phase_nmpc(dev, card, ticks=NMPC_TICKS_PROPS, over=None, variant="recfeas")
+    log(json.dumps({"formulation": report}))
+    out["report"] = report
+    return out
 
 
 # source -> (its C functions, the kernels timed, the models whose steady
@@ -2232,6 +2581,8 @@ def main(argv=None) -> int:
                          "package's build, then stop")
     ap.add_argument("--composed", action="store_true",
                     help="run only the composed main path and Nmpc, then stop")
+    ap.add_argument("--formulation", action="store_true",
+                    help="run only the formulation extras (phase 17), then stop")
     args = ap.parse_args(argv)
     card = phase_card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2248,6 +2599,9 @@ def main(argv=None) -> int:
             for source in sources:
                 phase_builds(dev, card, source, dirs)
             return 0
+    if args.formulation:
+        phase_formulation(dev, card)
+        return 0
     if args.composed:
         _, t_step, steady, state, inputs = phase_main_path(
             dev, card, over=DWS, per_step=composed_per_step, label="composed path")
@@ -2280,10 +2634,15 @@ def main(argv=None) -> int:
     config1 = phase_config1(dev, card)
     other = phase_other_rows(dev, card)
     log(json.dumps({"config_1": config1, "other_rows": other}))
+    extras = phase_formulation(dev, card)
     for i, row in enumerate(rows):  # kernels 1 and 3: att's numbers, every model's beside
         if row["name"] in ("lin_y_sens", "condense"):
             rows[i] = kernel_row_per_model({"att": row, **per_kernel[row["name"]]}, "att")
-    rows.append(kernel_row_per_model(per_kernel["erk4_sens"], "props"))
+    # kernel 9: att's (under sdf_cost) at top level, all six families beside
+    rows.append(kernel_row_per_model({**extras["erk4_sens"], **per_kernel["erk4_sens"]}, "att"))
+    for row in rows:  # the formulation extras' readings of kernels 1-8, per path
+        if row["name"] in extras["per_path"]:
+            row["per_path"] = extras["per_path"][row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,9 +9,11 @@ B=1 on the OCP's device; the host keeps the parameter and reference
 matrices in numpy, as the JAX controller does.
 
 It takes ``sdf=`` (a port NeuralDF on ``device``) where the JAX controller
-takes ``sdf_fn``.  The perception arguments ``bdist_coeffs`` and
-``r_tilde`` (braking-distance and recursive-feasibility rows) are not
-ported and raise (ROADMAP.md).
+takes ``sdf_fn``; ``bdist_coeffs`` (the braking-distance polynomial of the
+recursive-feasibility rows) and ``r_tilde`` (the stability constant) go to
+``build_ocp``, and ``eval(k)`` returns node k's diagnostics in the order of
+``ocp.eval_names`` ("sdf", and with recursive feasibility "braking_dist"
+and "rec_feas_margin", then the caller's eval rows).
 """
 
 from __future__ import annotations
@@ -35,16 +37,13 @@ class Nmpc:
 
     def __init__(self, cfg, sdf=None, sdf_max_df: float = 1.0, bdist_coeffs=None,
                  r_tilde=None, ocp: Optional[OcpSpec] = None, device="cuda"):
-        if bdist_coeffs is not None or r_tilde is not None:
-            raise NotImplementedError(
-                "the braking-distance and recursive-feasibility rows (bdist_coeffs, "
-                "r_tilde) are not ported; they are queued in ROADMAP.md")
         self.cfg = cfg
         self.layout = ParamLayout.from_cfg(cfg)
         self.T = cfg.mpc.T
         self.N = cfg.mpc.N
         if ocp is None:
-            ocp = build_ocp(cfg, sdf=sdf, sdf_max_df=sdf_max_df, device=device)
+            ocp = build_ocp(cfg, sdf=sdf, sdf_max_df=sdf_max_df, bdist_coeffs=bdist_coeffs,
+                            r_tilde=r_tilde, device=device)
         self.ocp = ocp
         self.model = ocp.model
         # three budgets (solver/sqp.py): the first tick after reset / a fresh
@@ -206,7 +205,8 @@ class Nmpc:
                                                 for k in range(1, self.N + 1)]
 
     def eval(self, k: int):
-        """Diagnostics vector at node k."""
+        """Diagnostics vector at node k (``ocp.eval_names``); [0] before a
+        solve or without eval rows."""
         if self._evals is None:
             return [0]
         return self._evals[k]

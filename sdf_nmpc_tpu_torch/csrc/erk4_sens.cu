@@ -1,26 +1,31 @@
-// RK4 step + exact discrete sensitivities for the models without a
-// component-form residual (rates, wrench, props).
+// RK4 step + exact discrete sensitivities, for the models without a
+// component-form residual (rates, wrench, props) and, when the OCP's stage
+// residual is wider than the model's (flags.sdf_cost), for every model (att,
+// acc, att_tau too; the JAX step's rule, solver/sqp.py:291-308).
 //
 // Replaces: sdf_nmpc_tpu/ops/lin_kernels.py _erk4_sens_kernel (:49).  For
 // each (scenario, shooting node) point: x+ = RK4(f, x, u, dt), A = dx+/dx
 // (nx x nx), B = dx+/du (nx x 4), in f32: kernel 1's first three outputs
 // without the residual rows.  f is the model's component form f_lanes
-// (models/quad_rates.py, quad_wrench.py, quad_props.py), one struct each; the
+// (models/quad_rates.py, quad_wrench.py, quad_props.py here; att, acc and
+// att_tau from quad_dyn.cuh, kernel 1's structs), one struct each; the
 // kernel is a template over it.  The constants (input scales; props' mass,
 // allocation and inertia) come by value in ModelConsts.
 //
 // Bound on this card: bytes.  Per point the kernel reads nx + 5 floats and
-// writes nx (1 + nx + 4) (rates 15 and 150, wrench and props 18 and 234: 108
-// and 165 MB at B=8192, N=20) against the register arithmetic of one primal
-// RK4 and nx + 4 tangent sweeps through it (chip_smoke.py counts both).
+// writes nx (1 + nx + 4) (nx = 10: 15 and 150, wrench and props 18 and 234:
+// 108 and 165 MB at B=8192, N=20) against the register arithmetic of one
+// primal RK4 and nx + 4 tangent sweeps through it (chip_smoke.py counts
+// both).
 //
 // Design: kernel 1's (lin_y_sens.cu).  One thread per point and pair of
 // tangent directions: a block takes PB consecutive points, NL = (nx + 5) / 2
-// threads each (rates 7, wrench and props 9; the ninth carries direction 16
-// and a zero second tangent), and thread t runs directions 2 (t % NL) and
-// 2 (t % NL) + 1 of point t / NL as one Dual2 sweep (dual2.cuh: each tangent
-// by dual.cuh's scalar rule, in its order); the point's first thread also
-// stores x+ from the sweep's values, the float instance's expressions.  The
+// threads each (rates, att, acc and att_tau 7, wrench and props 9; the
+// ninth carries direction 16 and a zero second tangent), and thread t runs
+// directions 2 (t % NL) and 2 (t % NL) + 1 of point t / NL as one Dual2
+// sweep (dual2.cuh: each tangent by dual.cuh's scalar rule, in its order);
+// the point's first thread also stores x+ from the sweep's values, the
+// float instance's expressions.  The
 // block loads its points' inputs into shared memory (coalesced), every
 // thread writes its columns of A and B into a shared slab of the block's
 // outputs, and after one barrier the block stores each output's contiguous
@@ -36,6 +41,7 @@
 // (up to 9.5e-7).
 
 #include "dual2.cuh"
+#include "quad_dyn.cuh"
 
 namespace {
 
@@ -239,7 +245,8 @@ int geometry(int* threads, int* smem, int* blocks_per_sm) {
 
 }  // namespace
 
-// Launch geometry of model's instance (0 rates, 1 wrench, 2 props): threads
+// Launch geometry of model's instance (0 rates, 1 wrench, 2 props, 3 att,
+// 4 acc, 5 att_tau): threads
 // per block, dynamic shared bytes per block and resident blocks per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 SDF_NMPC_EXPORT int erk4_sens_geometry(int model, int* threads, int* smem, int* blocks_per_sm) {
@@ -247,11 +254,15 @@ SDF_NMPC_EXPORT int erk4_sens_geometry(int model, int* threads, int* smem, int* 
     case 0: return geometry<Rates>(threads, smem, blocks_per_sm);
     case 1: return geometry<Wrench>(threads, smem, blocks_per_sm);
     case 2: return geometry<Props>(threads, smem, blocks_per_sm);
+    case 3: return geometry<Att>(threads, smem, blocks_per_sm);
+    case 4: return geometry<Acc>(threads, smem, blocks_per_sm);
+    case 5: return geometry<AttTau>(threads, smem, blocks_per_sm);
     default: return int(cudaErrorInvalidValue);
   }
 }
 
-// model: 0 rates, 1 wrench, 2 props (ModelSpec.kernel_model); consts:
+// model: 0 rates, 1 wrench, 2 props, 3 att, 4 acc, 5 att_tau
+// (ModelSpec.kernel_ids); consts:
 // host pointer to the n_consts floats of models/base.py::kernel_consts.
 SDF_NMPC_EXPORT int erk4_sens_launch(const float* X, const float* U, const float* dt, float* xn,
                                      float* A, float* Bm, int M, int model, const float* consts,
@@ -262,6 +273,9 @@ SDF_NMPC_EXPORT int erk4_sens_launch(const float* X, const float* U, const float
     case 0: return int(launch<Rates>(X, U, dt, xn, A, Bm, M, c, stream));
     case 1: return int(launch<Wrench>(X, U, dt, xn, A, Bm, M, c, stream));
     case 2: return int(launch<Props>(X, U, dt, xn, A, Bm, M, c, stream));
+    case 3: return int(launch<Att>(X, U, dt, xn, A, Bm, M, c, stream));
+    case 4: return int(launch<Acc>(X, U, dt, xn, A, Bm, M, c, stream));
+    case 5: return int(launch<AttTau>(X, U, dt, xn, A, Bm, M, c, stream));
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -117,3 +117,41 @@ def gtmrp_matrix(R, p, signs, c_f, c_t):
         for i in range(len(R))
     ])
     return G_f, G_t
+
+
+# ---- 3-variate polynomial (the braking-distance surrogate) ----
+
+
+def polynomial_3variate_exponents(deg: int) -> np.ndarray:
+    """(n_terms, 3) monomial exponents of the 3-variate polynomial of degree
+    ``deg``: total degree 0..deg, then a = 0..total, b = 0..total - a,
+    c = total - a - b, term x0^a x1^b x2^c.  This order fixes the layout of
+    the fitted coefficient files."""
+    rows = [(a, b, total - a - b) for total in range(deg + 1) for a in range(total + 1)
+            for b in range(total + 1 - a)]
+    exps = np.array(rows, dtype=np.int64)
+    assert len(exps) == (deg + 1) * (deg + 2) * (deg + 3) // 6
+    return exps
+
+
+def polynomial_3variate(deg: int, coeffs=None):
+    """(poly_fn, exponents) of the 3-variate polynomial of degree ``deg``.
+    With ``coeffs``, poly_fn(x) evaluates with them, else poly_fn(x, coeffs);
+    x (..., 3) -> (...,).  The powers x^0..x^deg of each coordinate are built
+    by products and gathered per term, so a negative base and its gradient
+    stay exact (no float pow)."""
+    exps = polynomial_3variate_exponents(deg)
+
+    def _eval(x, c):
+        powers = [torch.ones_like(x)]
+        for _ in range(deg):
+            powers.append(powers[-1] * x)
+        table = torch.stack(powers, -2)  # (..., deg + 1, 3)
+        idx = torch.as_tensor(exps, device=x.device)
+        monomials = table[..., idx, torch.arange(3, device=x.device)].prod(-1)  # (..., n_terms)
+        return monomials @ torch.as_tensor(c, dtype=x.dtype, device=x.device)
+
+    if coeffs is None:
+        return _eval, exps
+    c = np.asarray(coeffs, np.float64)
+    return (lambda x: _eval(x, c)), exps

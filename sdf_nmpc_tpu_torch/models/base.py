@@ -54,9 +54,10 @@ class ModelSpec:
     vel_world: Optional[Callable] = None
     # the constants the kernels' device functions read (kernel_consts below)
     kernel_consts: Optional[tuple] = None
-    # (kernel, model id) of the model's linearization kernel instantiation:
-    # ("lin_y_sens", i) or ("erk4_sens", i), the i of that source's switch
-    kernel_model: Optional[tuple] = None
+    # ((kernel, id), ...): the model's instance in each linearization kernel
+    # it has one in, the id of that source's switch ("lin_y_sens": kernel 1,
+    # csrc/lin_y_sens.cu; "erk4_sens": kernel 9, csrc/erk4_sens.cu)
+    kernel_ids: tuple = ()
 
 
 def kernel_consts(scale, mass=0.0, Gf=None, Gt=None, J=None, Jinv=None) -> tuple:

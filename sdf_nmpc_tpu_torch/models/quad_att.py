@@ -153,5 +153,5 @@ def make_model(cfg) -> ModelSpec:
         y_lanes=y_lanes,
         vel_world=lambda x: x[..., 7:10],
         kernel_consts=kernel_consts(scale),
-        kernel_model=("lin_y_sens", 0),
+        kernel_ids=(("lin_y_sens", 0), ("erk4_sens", 3)),
     )

@@ -127,5 +127,5 @@ def make_model(cfg) -> ModelSpec:
         u_to_acc=u_to_acc,
         u_to_props=u_to_props,
         kernel_consts=kernel_consts([lim.wp] * 4, mass, Gf, Gt, np.diag(J), np.diag(Jinv)),
-        kernel_model=("erk4_sens", 2),
+        kernel_ids=(("erk4_sens", 2),),
     )

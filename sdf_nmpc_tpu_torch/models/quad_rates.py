@@ -93,5 +93,5 @@ def make_model(cfg) -> ModelSpec:
         u_to_cmd=u_to_cmd,
         vel_world=vel_world,  # the state's v is body-frame
         kernel_consts=kernel_consts(scale),
-        kernel_model=("erk4_sens", 0),
+        kernel_ids=(("erk4_sens", 0),),
     )

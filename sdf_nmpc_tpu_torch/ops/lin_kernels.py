@@ -9,15 +9,17 @@ with a component-form residual (``y_lanes``): att, acc and att_tau.
 
 Kernel 9 (``erk4_sens``) is the counterpart of ``_erk4_sens_kernel`` (:49)
 and ``make_erk4_sens_nodes`` (:120): x+, A and B alone, for the models
-without ``y_lanes`` (rates, wrench, props); their residual rows come from
-``torch.func`` in the step, as in the JAX package.
+without ``y_lanes`` (rates, wrench, props), and for every model when the
+OCP's stage residual is wider than the model's (``flags.sdf_cost``: att,
+acc and att_tau too); the residual rows then come from ``torch.func`` in
+the step, as in the JAX package (its solver/sqp.py:291-308).
 
 On CUDA tensors each wrapper launches its CUDA source (``csrc/lin_y_sens.cu``,
 ``csrc/erk4_sens.cu``), instantiated per model: the model's component forms
 f_lanes / y_lanes as device functions, two forward-mode tangents per thread
 in registers (``csrc/dual2.cuh``), the model's constants
 (``ModelSpec.kernel_consts``) passed by value, the instantiation named by
-``ModelSpec.kernel_model``.  A model without an
+``ModelSpec.kernel_ids``.  A model without an
 instantiation of that kernel raises.  On CPU tensors a wrapper runs its plain
 version: RK4 of the model's ``f`` (true atan2 / asin) differentiated with
 ``torch.func.jacfwd``, exactly the JAX package's non-kernel path.  The two
@@ -38,12 +40,13 @@ from . import _lib
 
 
 def _model_id(kernel: str, model) -> int:
-    """The model's instantiation id in ``kernel``'s source (ModelSpec.kernel_model)."""
-    if model.kernel_model is None or model.kernel_model[0] != kernel:
+    """The model's instantiation id in ``kernel``'s source (ModelSpec.kernel_ids)."""
+    ids = dict(model.kernel_ids)
+    if kernel not in ids:
         raise NotImplementedError(
-            f"{kernel} has no CUDA instantiation for model {model.name!r} (its kernel: "
-            f"{model.kernel_model})")
-    return model.kernel_model[1]
+            f"{kernel} has no CUDA instantiation for model {model.name!r} (its instances: "
+            f"{ids})")
+    return ids[kernel]
 
 
 def _consts(model):

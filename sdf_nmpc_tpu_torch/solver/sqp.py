@@ -7,14 +7,19 @@ backend.  The JAX step is single-scenario and reaches its kernels through
 directly:
 
   1. ``ops.lin_kernels.lin_y_sens``   RK4 + A, B + stage residual + Jyx, Jyu
-     (models with ``y_lanes``: att, acc, att_tau), or
-  9. ``ops.lin_kernels.erk4_sens``    RK4 + A, B (rates, wrench, props), the
-     stage residual and its Jacobians then by ``torch.func``
+     (models with ``y_lanes``, att, acc, att_tau, when the OCP's residual is
+     the model's), or
+  9. ``ops.lin_kernels.erk4_sens``    RK4 + A, B (rates, wrench, props; every
+     model under ``flags.sdf_cost``), the stage residual and its Jacobians
+     then by ``torch.func``
   2. ``ops.sdf_fused.sdf_value_grad`` NeuralDF value + position gradient
      (``solver.sdf_fused_dtype``: f32, the default 3xTF32 route, bf16 or
      mixed); for a NeuralDF with res != 'full' or under ``solver.fused_sdf:
      False`` the autodiff row (``ocp.autodiff_value_grad``, torch.func), as
-     the JAX step takes it without a fused value+grad
+     the JAX step takes it without a fused value+grad.  Only on the SDF
+     row's fast path (``ocp.sdf_row_batch``: sdf_constraint on, sdf_cost
+     off); otherwise every stage row goes through ``torch.func``, jacrev for
+     fewer than (nx + nu) / 2 rows, else jacfwd, as the JAX step
   3. ``ops.condense_kernel.condense`` condensing recursion + condensed rows
      (at nh = 0, BASELINE config 1, its plain version, as the JAX step)
   4. ``ops.ip_kernel.ip_phase``       (inside ``solve_qp``) two IP phases, or
@@ -27,9 +32,9 @@ rows (nc = 0 takes the composed path), as the JAX step does.  With
 ``dual_warm_start`` the state carries the QP duals from tick to tick
 (acados' ``qp_solver_warm_start``).
 
-The FoV-row, ``yN`` and terminal ``hN`` Jacobians use ``torch.func``; the
-Gram H/g assembly (``gram``) accumulates in f64, where the JAX step forms it
-in f32.  A non-finite update leaves the scenario's warm start untouched and
+The FoV-row, extension-row, ``yN`` and terminal ``hN`` Jacobians use
+``torch.func``; the Gram H/g assembly (``gram``) accumulates in f64, where
+the JAX step forms it in f32.  A non-finite update leaves the scenario's warm start untouched and
 reports STATUS_NAN.
 """
 
@@ -224,8 +229,8 @@ def _check_supported(cfg, N):
     if bad:
         raise NotImplementedError(
             f"solver settings not ported: {bad} (the XLA and custom linear-algebra "
-            "routes and the numerics-attribution hooks are queued in ROADMAP.md section 1 "
-            "item 10)")
+            "routes and the numerics-attribution hooks are queued in ROADMAP.md, section 1, "
+            "'The JAX solver knobs the port still refuses')")
     if str(s.dtype) not in _DTYPES:
         raise ValueError(f"unsupported solver dtype {s.dtype!r}")
 
@@ -234,18 +239,14 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
     """Build the batched RTI step: step(state, inputs) -> SolveResult.
 
     budget selects the QP iteration schedule ("cold", "warm" or "steady").
-    with_evals=False skips the per-node "sdf" diagnostics (a second NeuralDF
-    pass over all N+1 nodes)."""
+    with_evals=False skips the per-node diagnostics (``ocp.eval_names``: the
+    "sdf" row is a second NeuralDF pass over all N+1 nodes)."""
     N, nx, nu = ocp.N, ocp.nx, ocp.nu
     _check_supported(cfg, N)
     dtype = _DTYPES[str(cfg.solver.dtype)]
     dev = ocp.device
     if dev.type == "cuda" and dtype != torch.float32:
         raise NotImplementedError("the CUDA kernels run float32 only")
-    if ocp.ny != ocp.model.ny:
-        raise NotImplementedError(
-            "extra stage cost rows (sdf_cost) are formulation extras, queued in ROADMAP.md "
-            "section 1 item 6")
     qp_iters, k_stiff, stiff_iters, ratio_cap = _budget_knobs(cfg, budget)
     nz = N * nu
     nh, nhN = ocp.nh, ocp.nhN
@@ -270,15 +271,17 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
     z1_all = torch.cat([z1_stage, zlN])
     z2_all = torch.cat([z2_stage, ZlN])
 
-    # the network in the solver dtype, as a module for the terminal row
-    # (differentiated by autograd, as in JAX) and evals; the stage SDF row's
-    # value and position gradient (JAX sqp.py's sdf_fast): kernel 2 by
-    # sdf_fused_dtype for a res='full' network with fused_sdf on, else the
-    # autodiff row, as the JAX package takes without a fused value+grad
-    # (ops/sdf_fused.py:337-339, utils/accuracy.py:165-172)
+    # the network in the solver dtype, as a module for the rows that read it
+    # (differentiated by torch.func, as in JAX) and evals; the stage SDF row's
+    # value and position gradient on its fast path (JAX sqp.py's sdf_fast):
+    # kernel 2 by sdf_fused_dtype for a res='full' network with fused_sdf on,
+    # else the autodiff row, as the JAX package takes without a fused
+    # value+grad (ops/sdf_fused.py:337-339, utils/accuracy.py:165-172)
     net = value_grad = None
+    sdf_fast = ocp.sdf_row_batch is not None
     if ocp.sdf is not None:
         net = copy.deepcopy(ocp.sdf).to(dtype).requires_grad_(False)
+    if sdf_fast:
         if bool(cfg.solver.get("fused_sdf", True)) and ocp.sdf.res == "full":
             packed = sdf_fused.pack_neural_df_params(ocp.sdf, dtype)
             sdf_mode = str(cfg.solver.get("sdf_fused_dtype", "f32x3"))
@@ -287,26 +290,42 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
         else:
             value_grad = autodiff_value_grad(net)
 
-    cheap = ocp.h_stage_cheap
-    n_cheap = len(ocp.cheap_stage_indices)
+    # the stage rows torch.func differentiates: on the SDF row's fast path
+    # the others (FoV and extension rows), else the whole stack; with few
+    # rows by reverse mode (JAX sqp.py:271, 319-341)
+    if sdf_fast:
+        cheap, cheap_idx = ocp.h_stage_cheap, list(ocp.cheap_stage_indices)
+    else:
+        cheap = (lambda x, u, p: ocp.h_stage(x, u, p, net)) if nh else None
+        cheap_idx = list(range(nh))
+    n_cheap = len(cheap_idx)
+    if cheap_idx == list(range(n_cheap)):  # a leading run of rows: a slice, not an index
+        cheap_idx = slice(0, n_cheap)
+    h_jac = jacrev if 0 < nh < (nx + nu) // 2 else jacfwd
 
-    def fov_node(x3, x_rest, p):
-        return cheap(torch.cat([x3, x_rest], -1), p)
+    def pos_node(x3, x_rest, u, p):
+        return cheap(torch.cat([x3, x_rest], -1), u, p)
 
     # linearization: kernel 1 where the model has a component-form residual
-    # (ocp.y is the model's: checked above), else kernel 9 for x+, A, B and
+    # and the OCP's residual is the model's, else kernel 9 for x+, A, B and
     # torch.func for the residual rows, as the JAX step (sqp.py:282-310)
-    use_lin_y = ocp.model.y_lanes is not None
+    use_lin_y = ocp.model.y_lanes is not None and ocp.ny == ocp.model.ny
 
     def y_node(x, u, p):
-        y_fn = lambda xv, uv: ocp.y(xv, uv, p)
+        y_fn = lambda xv, uv: ocp.y(xv, uv, p, net)
         Jyx, Jyu = jacfwd(y_fn, argnums=(0, 1))(x, u)
         return y_fn(x, u), Jyx, Jyu
 
     y_lin = vmap(y_node)
-    fov_jac = vmap(jacfwd(fov_node, argnums=0))
+    if ocp.cheap_rows_pos_only:  # x[:3] alone: 3 forward tangents
+        cheap_jac = vmap(jacfwd(pos_node, argnums=0))
+    elif n_cheap:
+        cheap_jac = vmap(h_jac(cheap, argnums=(0, 1)))
     yN_jac = vmap(jacfwd(ocp.yN, argnums=0))
-    hN_jac = vmap(jacrev(lambda x, p: ocp.h_term(x, p, net), argnums=0)) if nhN else None
+    hN_jac = None
+    if nhN:
+        jacN = jacrev if nhN < nx // 2 else jacfwd
+        hN_jac = vmap(jacN(lambda x, p: ocp.h_term(x, p, net), argnums=0))
 
     def step(state: SolverState, inp: SolveInputs) -> SolveResult:
         X = state.X.to(dtype)
@@ -333,18 +352,23 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
         A, Bm = A.reshape(B, N, nx, nx), Bm.reshape(B, N, nx, nu)
         res, Jyx, Jyu = res.reshape(B, N, ny), Jyx.reshape(B, N, ny, nx), Jyu.reshape(B, N, ny, nu)
 
-        # ---- constraint rows: FoV rows by jacfwd over x[:3], sdf row by kernel 2 ----
+        # ---- constraint rows: the FoV rows by jacfwd over x[:3] and the sdf
+        # row by kernel 2 on its fast path, else by torch.func ----
         h_val = torch.zeros(M, nh, dtype=dtype, device=dev)
         Jhx = torch.zeros(M, nh, nx, dtype=dtype, device=dev)
+        Jhu = torch.zeros(M, nh, nu, dtype=dtype, device=dev)
         if n_cheap:
-            h_val[:, :n_cheap] = cheap(XN_, PN_)
-            Jhx[:, :n_cheap, :3] = fov_jac(XN_[:, :3], XN_[:, 3:], PN_)  # (M, n_cheap, 3)
-        if nh:
+            h_val[:, cheap_idx] = cheap(XN_, UN_, PN_)
+            if ocp.cheap_rows_pos_only:  # (M, n_cheap, 3)
+                Jhx[:, cheap_idx, :3] = cheap_jac(XN_[:, :3], XN_[:, 3:], UN_, PN_)
+            else:
+                Jhx[:, cheap_idx], Jhu[:, cheap_idx] = cheap_jac(XN_, UN_, PN_)
+        if sdf_fast:
             h_sdf, dhdx3 = ocp.sdf_row_batch(XN_, PN_, value_grad)
             h_val[:, ocp.sdf_stage_idx] = h_sdf.to(dtype)
             Jhx[:, ocp.sdf_stage_idx, :3] = dhdx3.to(dtype)
         h_val, Jhx = h_val.reshape(B, N, nh), Jhx.reshape(B, N, nh, nx)
-        Jhu = torch.zeros(B, N, nh, nu, dtype=dtype, device=dev)
+        Jhu = Jhu.reshape(B, N, nh, nu)
         defect = x_next - X[:, 1:]
 
         # ---- terminal rows ----
@@ -406,8 +430,9 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
                                  STATUS_NOT_CONVERGED, status).to(torch.int32)
         U_new = torch.where(bad[:, None, None], U, U_new)
         X_new = torch.where(bad[:, None, None], X, X_new)
-        evals = (ocp.sdf_eval(X_new, p, net)[..., None]
-                 if with_evals and ocp.sdf_eval is not None else None)
+        evals = None
+        if with_evals and ocp.eval_fn is not None:
+            evals = ocp.eval_fn(X_new, torch.cat([U_new, U_new[:, -1:]], 1), p, net)
         return SolveResult(
             state=SolverState(X=X_new, U=U_new,
                               qp_duals=qp_res.duals if state.qp_duals is not None else None),

@@ -14,6 +14,13 @@ independent oracle's ``tests/golden/oracle_u0.npz`` (``cold_reference``)
 and their replays read ``warm_ref_<model>.npz`` (``warm_npz_path``).  The
 goldens are read with numpy only.
 
+``variant='recfeas'`` turns on recursive feasibility and stability (the
+synthetic braking-distance polynomial ``synthetic_bdist_coeffs``, r_tilde
+1.0, as the JAX workload builds it, :115-176): its first 8 cold scenarios
+are held against the oracle's ``recfeas_u0``.  ``variant='sdf_cost'`` adds
+the SDF stage cost row to config 4; no golden holds it (chip_smoke.py holds
+it against the port's f64 CPU step).
+
 ``solver_over`` (cfg.solver overrides) runs the same checks under another
 solver configuration.  With ``dual_warm_start`` the cold solve starts from
 the seeded duals of ``init_state``, and the replay carries the QP duals of
@@ -91,6 +98,17 @@ def build_scenarios(cfg, ocp, layout, latents=None):
     return out
 
 
+def synthetic_bdist_coeffs(cfg):
+    """The deterministic braking-distance polynomial of the recursive-
+    feasibility goldens: ~0.3 m and small velocity-dependent terms."""
+    from ..math import polynomial_3variate_exponents
+
+    n = polynomial_3variate_exponents(cfg.mpc.braking_dist.degree).shape[0]
+    coeffs = np.random.default_rng(1).normal(size=n) * 0.01
+    coeffs[0] += 0.3
+    return coeffs
+
+
 def family_config(cfg, model=None):
     """cfg with cfg.mpc.model set.  wrench runs with a torque limit of 2.0,
     as in the JAX accuracy workload: the shipped 0 zeroes its torque inputs
@@ -107,8 +125,10 @@ def build_setup(device="cuda", solver_over=None, model=None, variant="sdf"):
     """(cfg, ocp, layout, latents) of the workload: the trained production
     NeuralDF and its encoded-scene latents from ``weights/``; ``model``: a
     quad family other than the default att.  ``variant``: 'sdf' (BASELINE
-    config 4) or 'nosdf' (config 1: enable_sdf off, no network, latents
-    None: the scenarios keep the seeded draw, which no row reads)."""
+    config 4), 'nosdf' (config 1: enable_sdf off, no network, latents
+    None: the scenarios keep the seeded draw, which no row reads),
+    'recfeas' (config 4 with recursive feasibility and stability) or
+    'sdf_cost' (config 4 with the SDF stage cost row)."""
     from ..config import default_config
     from ..nn.weights import load_prod_latents, load_prod_sdf
     from ..ocp import build_ocp
@@ -120,13 +140,19 @@ def build_setup(device="cuda", solver_over=None, model=None, variant="sdf"):
     if variant == "nosdf":
         cfg = cfg.replace(flags=dict(enable_sdf=False))
         return cfg, build_ocp(cfg, device=device), ParamLayout.from_cfg(cfg), None
-    if variant != "sdf":
+    kw = {}
+    if variant == "recfeas":
+        cfg = cfg.replace(flags=dict(recursive_feasibility=True, stability=True))
+        kw = dict(bdist_coeffs=synthetic_bdist_coeffs(cfg), r_tilde=1.0)
+    elif variant == "sdf_cost":
+        cfg = cfg.replace(flags=dict(sdf_cost=True))
+    elif variant != "sdf":
         raise ValueError(f"unknown variant {variant!r}")
     sdf = load_prod_sdf(require_latent=LATENT, require_layers=LAYERS, device=device)
     lat = load_prod_latents()
     if sdf is None or lat is None or lat.shape[0] < N_SCEN:
         raise RuntimeError("the accuracy goldens need the trained NeuralDF in weights/")
-    ocp = build_ocp(cfg, sdf=sdf, sdf_max_df=1.0, device=device)
+    ocp = build_ocp(cfg, sdf=sdf, sdf_max_df=1.0, device=device, **kw)
     return cfg, ocp, ParamLayout.from_cfg(cfg), np.asarray(lat[:N_SCEN], np.float64)
 
 
@@ -156,11 +182,14 @@ def cold_reference(model=None, variant="sdf"):
     """(u0 golden, scenario count) of a family's cold check: att's 32 of
     accuracy_ref_u0.npz, another family's first FAMILY_SCEN against the
     independent oracle's u0 in oracle_u0.npz; BASELINE config 1 ('nosdf',
-    att) the oracle's 32 nosdf_u0."""
-    if variant == "nosdf":
+    att) the oracle's 32 nosdf_u0, 'recfeas' (att) its 8 recfeas_u0."""
+    if variant in ("nosdf", "recfeas"):
         if model not in (None, "att"):
-            raise ValueError("the oracle's nosdf goldens are att's")
-        return np.load(ORACLE_NPZ)["nosdf_u0"], N_SCEN
+            raise ValueError(f"the oracle's {variant} goldens are att's")
+        u0 = np.load(ORACLE_NPZ)[f"{variant}_u0"]
+        return u0, len(u0)
+    if variant != "sdf":
+        raise ValueError(f"no golden holds variant {variant!r}")
     if model in (None, "att"):
         return np.load(REF_NPZ)["u0"], N_SCEN
     return np.load(ORACLE_NPZ)[f"{ORACLE_KEYS[model]}_u0"], FAMILY_SCEN
@@ -168,9 +197,9 @@ def cold_reference(model=None, variant="sdf"):
 
 def check_accuracy(device="cuda", solver_over=None, model=None, variant="sdf"):
     """Cold-start u0 error against the family's golden (cold_reference);
-    ``variant`` 'nosdf': BASELINE config 1 against the oracle's nosdf_u0, as
-    the JAX package's utils/accuracy.py:118-161 and
-    tests/test_oracle_parity.py hold it."""
+    ``variant`` 'nosdf' (BASELINE config 1) and 'recfeas' against the
+    oracle's nosdf_u0 and recfeas_u0, as the JAX package's
+    utils/accuracy.py:118-176 and tests/test_oracle_parity.py hold them."""
     from ..solver import init_state, make_rti_step
 
     ref, n = cold_reference(model, variant)

@@ -72,16 +72,18 @@ def test_nmpc_ticks_match_jax(dual_ws):
 
 
 def test_nmpc_contracts():
-    """solve before set_x0 raises; the perception arguments and a command
-    map the model lacks raise and say why; dead reckoning keeps the
-    predicted state; reset drops the warm start."""
+    """solve before set_x0 raises; recursive feasibility without its
+    braking-distance polynomial and a command map the model lacks raise and
+    say why; dead reckoning keeps the predicted state; reset drops the warm
+    start."""
     from sdf_nmpc_tpu_torch.controller import Nmpc
 
     _, tc = _configs(dtype="float64", qp_iters=4, qp_iters_warm=4, qp_iters_steady=4)
     tc = tc.replace(mpc=dict(N=4, T=0.3, allow_dead_reck=True))
     net = _nets()[2]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Nmpc(tc, sdf=net, bdist_coeffs=np.ones(5), device="cpu")
+    with pytest.raises(ValueError, match="bdist_coeffs"):
+        Nmpc(tc.replace(flags=dict(recursive_feasibility=True)), sdf=net, r_tilde=1.0,
+             device="cpu")
     n = Nmpc(tc, sdf=net, device="cpu")
     with pytest.raises(RuntimeError, match="set_x0"):
         n.solve()

@@ -1,6 +1,7 @@
-"""Kernel 9 (erk4_sens) and kernel 1's acc / att_tau instantiations: the
-plain versions against the JAX Pallas kernels (interpret mode, f32) and the
-JAX jacfwd path (f64), and the wrappers' model dispatch."""
+"""Kernel 9 (erk4_sens; all six families, att, acc and att_tau under
+sdf_cost) and kernel 1's acc / att_tau instantiations: the plain versions
+against the JAX Pallas kernels (interpret mode, f32) and the JAX jacfwd path
+(f64), and the wrappers' model dispatch."""
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +32,7 @@ def _within(got, want, tol, name):
     assert err <= lim, f"{name}: {err:.2e} > {lim:.2e}"
 
 
-@pytest.mark.parametrize("model", ["rates", "wrench", "props"])
+@pytest.mark.parametrize("model", ["rates", "wrench", "props", "att", "acc", "att_tau"])
 def test_erk4_sens_plain_f32_matches_pallas_kernel_interpret(model):
     """The plain version (RK4 of f, torch.func.jacfwd) against the JAX
     kernel (RK4 of f_lanes, jax.linearize sweeps) in f32 on 37 points (not a
@@ -51,7 +52,7 @@ def test_erk4_sens_plain_f32_matches_pallas_kernel_interpret(model):
         _within(g.numpy(), w, tol, name)
 
 
-@pytest.mark.parametrize("model", ["rates", "wrench", "props"])
+@pytest.mark.parametrize("model", ["rates", "wrench", "props", "att", "acc", "att_tau"])
 def test_erk4_sens_plain_f64_matches_jax_jacfwd_path(model):
     """f64 against vmap(erk4_with_sensitivities) on the JAX model's f, the
     JAX step's non-kernel path: the same algorithm, 1e-12."""
@@ -130,9 +131,9 @@ def test_lin_y_sens_plain_f64_matches_jax_jacfwd_path(model):
 
 def test_cuda_wrappers_refuse_models_without_an_instantiation():
     """Each kernel's CUDA path takes the instantiation named by the model's
-    ``kernel_model`` and raises for the others before it touches a tensor:
-    kernel 1 serves att, acc and att_tau, kernel 9 rates, wrench and props,
-    each with its own id."""
+    ``kernel_ids`` and raises for the others before it touches a tensor:
+    kernel 1 serves att, acc and att_tau, kernel 9 all six families (att,
+    acc and att_tau under sdf_cost), each with its own id."""
     from sdf_nmpc_tpu_torch.ops import lin_kernels
 
     x = torch.zeros(2, 10)
@@ -140,11 +141,7 @@ def test_cuda_wrappers_refuse_models_without_an_instantiation():
         tm = _models(model)[1]
         with pytest.raises(NotImplementedError, match="lin_y_sens"):
             lin_kernels._lin_y_sens_cuda(tm, None, x, x, x, x, x)
-    for model in ("att", "acc", "att_tau"):
-        tm = _models(model)[1]
-        with pytest.raises(NotImplementedError, match="erk4_sens"):
-            lin_kernels._erk4_sens_cuda(tm, x, x, x)
-    assert [_models(m)[1].kernel_model for m in ("att", "acc", "att_tau")] == [
-        ("lin_y_sens", 0), ("lin_y_sens", 1), ("lin_y_sens", 2)]
-    assert [_models(m)[1].kernel_model for m in ("rates", "wrench", "props")] == [
-        ("erk4_sens", 0), ("erk4_sens", 1), ("erk4_sens", 2)]
+    ids = {m: dict(_models(m)[1].kernel_ids)
+           for m in ("att", "acc", "att_tau", "rates", "wrench", "props")}
+    assert [ids[m].get("lin_y_sens") for m in ids] == [0, 1, 2, None, None, None]
+    assert [ids[m]["erk4_sens"] for m in ids] == [3, 4, 5, 0, 1, 2]

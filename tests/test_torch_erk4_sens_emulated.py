@@ -2,8 +2,10 @@
 directions per thread as one ``Dual2`` sweep, the block's inputs and outputs
 staged through shared memory) run on the CPU in the g++ emulation of the
 CUDA execution model (``tests/_torch_port.py``), through the package's own
-wrapper ``_erk4_sens_cuda``, against ``erk4_sens_plain`` for rates, wrench
-and props.
+wrapper ``_erk4_sens_cuda``, against ``erk4_sens_plain`` for all six
+families: rates, wrench and props, and the instances of att, acc and
+att_tau (their dynamics from ``csrc/quad_dyn.cuh``) that the step takes
+under sdf_cost.
 
 37 points: two whole blocks of 16 and a partial one.  A missing barrier, a
 wrong slab offset, a column stored in the wrong place or a ninth lane that
@@ -43,7 +45,7 @@ def _points(M, nx, seed):
     return [t32(a) for a in (x, u, rng.uniform(0.01, 0.1, size=M))]
 
 
-@pytest.mark.parametrize("model", ["rates", "wrench", "props"])
+@pytest.mark.parametrize("model", ["rates", "wrench", "props", "att", "acc", "att_tau"])
 def test_erk4_sens_emulated(emulated_erk4, monkeypatch, model):
     """x+, A and B each within ERK4_TOL (1 + its largest magnitude) of the
     plain version, exactly one launch counted; the launch geometry: 16

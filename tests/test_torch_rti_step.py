@@ -194,13 +194,16 @@ def _narrow_ocp():
 
 
 def test_unsupported_settings_raise():
+    """The Riccati backend is not ported and raises, naming ROADMAP.md;
+    recursive feasibility without its braking-distance polynomial raises
+    and names the missing argument, as the JAX build_ocp does."""
     from sdf_nmpc_tpu_torch.ocp import build_ocp
     from sdf_nmpc_tpu_torch.solver import make_rti_step
 
     ocp, tc, net = _narrow_ocp()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_rti_step(ocp, tc.replace(solver={"qp_backend": "riccati"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="bdist_coeffs"):
         build_ocp(tc.replace(flags=dict(recursive_feasibility=True)), sdf=net, device="cpu")
 
 
