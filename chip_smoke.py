@@ -5,8 +5,10 @@
 
 Two paths of BASELINE config 4 (att quad, N=20, the trained 4x256 NeuralDF
 of weights/, FoV rows, the condensed QP with nz=80, nc=63), BASELINE
-config 1 (no SDF, nc=0; phase 15) and config 4 with the formulation extras
-(the SDF cost row; recursive feasibility and stability, nc=68; phase 17),
+config 1 (no SDF, nc=0; phase 15), config 4 with the formulation extras
+(the SDF cost row; recursive feasibility and stability, nc=68; phase 17)
+and BASELINE config 3 (a depth image through the trained encoder to the
+latent of config 4's step, and the image-fed mission tick; phase 18),
 run through
 ``sdf_nmpc_tpu_torch``'s public entry points: the fused path (kernels 1-4,
 the default solver settings) and the composed QP path with
@@ -119,14 +121,35 @@ failure raises and exits non-zero before the result line:
    share and per-kernel numbers on a steady step's inputs (under sdf_cost
    also the torch.func residual and stage rows through the network); the
    ``Nmpc`` controller at B=1 built with ``bdist_coeffs`` and ``r_tilde``,
-   15 ticks.
+   15 ticks;
+18. perception, BASELINE config 3 (``--perception`` runs phases 1, 2 and
+   this one alone): the trained ResNet-VAE encoder (weights/, strict
+   270 x 480 gate) on the 8 config-3 scenes rendered on the card, its f32
+   latents against the f64 CPU encoder on the same images under
+   LATENT_RULE, once, under the cuDNN settings the port's encoder runs
+   (default algorithms, TF32 off); the config-3 contract
+   (render -> encode -> one cold step at B=8, default settings) against
+   tests/golden/config3_u0.npz, max <= 1e-3 and 8/8 status OK, kernels
+   1-4 held against their plain versions on every launch, each launch's
+   device time read from the profiler's kernel events of that run (CUDA
+   events around these small launches read the host's issue; kept as
+   ``issue_ms``); the
+   image-fed ``MissionServer`` at B=1 (the trained NeuralDF, default
+   settings): each tick scene 0 rendered from the camera's pose, sent as a
+   raw uint16 depth frame through the ``FrameRing``, read, encoded and
+   solved toward a waypoint past the blocking sphere, 31 ticks, the
+   median and p99 of the last 30 of the whole tick (host wall), the encode
+   (CUDA events) and ``Nmpc.get_t()``, then kernels 1-4 held and timed on
+   one more tick's launches; the encoder's images/s at B = 1, 8, 64, 256
+   (20 chained encodes ended by one synchronize) and peak memory, the
+   render's ms for the 8 scenes.
 
 The last lines are the ``kernels`` JSON (all nine kernels, kernel 2 as one
 row per route, each with its per-launch times ``launch_ms``; the rows of
 kernels 1, 3 and 9 carry each model's numbers under ``per_model``, and at
 top level att's (for kernel 9 att's under sdf_cost); the rows of kernels
-1-8 that the formulation extras run carry those readings under
-``per_path``; kernel 4's row ``launch_k_s`` and
+1-8 that the formulation extras and config 3 run carry those readings
+under ``per_path``; kernel 4's row ``launch_k_s`` and
 ``geometry``, kernel 2's rows (f32, f32x3, bf16, mixed) and the
 rows of kernels 1, 3, 5, 7, 8 and 9 their ``geometry``; the ``launches`` of
 kernel 2's f32, bf16 and mixed rows come from the runs of phase 6 that
@@ -161,6 +184,8 @@ print no result line):
         phases of that tree's package.
     python3 chip_smoke.py --formulation
         phases 1, 2 and 17: the formulation extras.
+    python3 chip_smoke.py --perception
+        phases 1, 2 and 18: perception, BASELINE config 3.
 """
 
 from __future__ import annotations
@@ -207,6 +232,11 @@ NOSDF_ITERS = {"cold": 20, "steady": 15}
 OMNI = {"sensor": {"hfov": float(np.pi), "vfov": float(np.pi / 6), "is_spherical": True}}
 OTHER_SCEN = 8  # scenarios of the omni and autodiff-row phases held against the f64 CPU step
 UNALIGNED = {"dual_warm_start": True, "qp_stiff_k": 6, "ir_steps": 1}
+ENCODER_B = (1, 8, 64, 256)  # encoder throughput batch sizes (phase 18)
+ENCODER_CHAINED = 20  # chained encodes per batch size
+MISSION_TICKS = 31  # image-fed MissionServer ticks (phase 18)
+LATENT_RULE = 1e-4  # card latents vs the f64 CPU encoder: max |d| <= LATENT_RULE (1 + max |z|)
+ENCODER_GFLOP = 4.34  # multiply-adds x 2 of the encoder per 270 x 480 image
 FUSED_KERNELS = {  # name -> (source in the repo, the TPU kernel it replaces)
     "lin_y_sens": ("sdf_nmpc_tpu_torch/csrc/lin_y_sens.cu",
                    "sdf_nmpc_tpu/ops/lin_kernels.py:173"),
@@ -472,6 +502,21 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profiled_kernel_ms(prof, names) -> dict:
+    """name -> the device ms of each launch of the port's kernel ``name``
+    in a profiled run, in launch order: the profiler's kernel events, read
+    by name as phase_profile reads them."""
+    from torch.autograd import DeviceType
+
+    out = {name: [] for name in names}
+    for e in sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        for name in names:
+            if f"{name}_kernel" in e.name:
+                out[name].append(e.time_range.elapsed_us() / 1e3)
+    return out
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -727,13 +772,16 @@ def check_fused_solve(call, label: str, as_plain=False) -> float:
     return max_abs(got.dz, want.dz)
 
 
-def check_all(cap: Capture, label: str, as_plain=False) -> dict:
+def check_all(cap: Capture, label: str, as_plain=False, sdf_route=None) -> dict:
     """Kernels 1, 3 and 4 (each launch and the whole fused solve; see
     check_ip for ``as_plain``) and, where the step called it, kernel 2 by
-    its four routes, against their plain versions on the captured inputs."""
+    its four routes (or by ``sdf_route`` alone), against their plain
+    versions on the captured inputs."""
+    sdf = ({} if not cap.args("sdf") else check_sdf_routes(cap) if sdf_route is None else
+           {sdf_route: max(check_sdf(a, sdf_route) for a in cap.args("sdf"))})
     errs = {
         "lin_y_sens": max(check_lin(a) for a in cap.args("lin_y_sens")),
-        **(check_sdf_routes(cap) if cap.args("sdf") else {}),
+        **sdf,
         "condense": max(check_condense(a) for a in cap.args("condense")),
     }
     errs["ip_phase"] = max([check_ip(a, f"{label} launch {i}", as_plain)
@@ -1565,20 +1613,31 @@ def erk4_geometry_row(args, card) -> dict:
     return geometry_row("erk4_sens", lin_kernels.erk4_sens_geometry(args[0]), instance, card)
 
 
-def kernel_rows(runs, calls, counts, errs, peaks, part, rates=None):
+def kernel_rows(runs, calls, counts, errs, peaks, part, rates=None, device=None):
     """One ``kernels`` row per kernel: its time over the launches of one
     steady step (CUDA events), the plain version's and the library call's
     on the same inputs, and the bound of that work.  ``rates``: name ->
     (passes, peak operations/s) for a kernel whose operations run at another
     peak than FP32's, ``passes`` times over; or a tuple of such pairs, one
-    per element of the tuple of operations its cost gives (see bound)."""
+    per element of the tuple of operations its cost gives (see bound).
+    ``device``: name -> the profiled device ms of each launch in calls
+    (profiled_kernel_ms), for small batches, whose launches the host's
+    issue outlasts: the kernel's times are taken from it, and the CUDA
+    events' reading around the wrapper is kept as ``issue_ms``."""
     rows = []
     for name, (kern, plain, cost, library) in runs.items():
-        ms = plain_ms = lib_ms = 0.0
+        ms = plain_ms = lib_ms = issue_ms = 0.0
         ops_total, bytes_total = 0.0, 0.0
         launch_ms = []
-        for a in calls[name]:
-            launch_ms.append(cuda_ms(lambda: kern(*a), reps=5))
+        if device is not None and len(device[name]) != len(calls[name]):
+            raise AssertionError(f"{name}: the profiler saw {len(device[name])} of "
+                                 f"{len(calls[name])} launches")
+        for i, a in enumerate(calls[name]):
+            if device is None:
+                launch_ms.append(cuda_ms(lambda: kern(*a), reps=5))
+            else:
+                launch_ms.append(device[name][i])
+                issue_ms += cuda_ms(lambda: kern(*a), reps=5)
             ms += launch_ms[-1]
             plain_ms += cuda_ms(lambda: plain(a), reps=2)
             if library is not None:
@@ -1599,7 +1658,12 @@ def kernel_rows(runs, calls, counts, errs, peaks, part, rates=None):
                      "library_ms": lib_ms if library is not None else None,
                      "launch_ms": launch_ms})
         lib = f", library {lib_ms:.4f} ms" if library is not None else ""
-        log(f"  {name:18s} {ms:9.4f} ms/step ({len(calls[name])} launches), plain "
+        issue = ""
+        if device is not None:
+            rows[-1].update(timed_by="torch.profiler kernel events of the path's run",
+                            issue_ms=issue_ms)
+            issue = f" device time (CUDA events around the wrapper {issue_ms:.4f} ms)"
+        log(f"  {name:18s} {ms:9.4f} ms/step{issue} ({len(calls[name])} launches), plain "
             f"{plain_ms:9.3f} ms{lib}, bound {bound_ms:.4f} ms by {bound_by} ({ops_total:.3e} "
             f"ops, {bytes_total / 1e9:.4f} GB; {part} peaks), {ms and bound_ms / ms:.1%} of bound")
     return rows
@@ -2150,19 +2214,28 @@ def torch_func_ms(dev, X, U, P, card, label) -> dict:
     return out
 
 
+def fused_runs() -> dict:
+    """kernel_rows' (kernel, plain version, cost, library call) of kernels
+    1-4 on the fused path (kernel 2 by its default f32x3 route)."""
+    from sdf_nmpc_tpu_torch.ops import condense_kernel, ip_kernel, lin_kernels, sdf_fused
+
+    return {
+        "lin_y_sens": (lin_kernels.lin_y_sens,
+                       lambda a: lin_kernels.lin_y_sens_plain(a[0], *a[2:]), lin_cost, None),
+        "sdf_fused_x3": (lambda *a: sdf_fused.sdf_value_grad(*a, mode="f32x3"),
+                         lambda a, _p=sdf_plain("sdf_fused_x3"): _p(*a), sdf_cost, None),
+        "condense": (condense_kernel.condense, lambda a: condense_kernel.condense_plain(*a),
+                     condense_cost, None),
+        "ip_phase": (ip_kernel.ip_phase, lambda a: ip_kernel.ip_phase_plain(*a), ip_cost, None),
+    }
+
+
 def phase_formulation(dev, card) -> dict:
     """The formulation extras (phase 17): sdf_cost through kernel 9's att,
     acc and att_tau instances; recursive feasibility and stability through
     kernel 4 at the wide stiff split (k_s = 48) and kernels 7-8 at k = 48.
     Returns the rows and readings for the kernels line and the report."""
-    from sdf_nmpc_tpu_torch.ops import (
-        _lib,
-        condense_kernel,
-        ip_kernel,
-        lin_kernels,
-        qp_kernels,
-        sdf_fused,
-    )
+    from sdf_nmpc_tpu_torch.ops import _lib, lin_kernels, qp_kernels
     from sdf_nmpc_tpu_torch.solver import init_state, make_rti_step
     from sdf_nmpc_tpu_torch.solver.sqp import _budget_knobs
     from sdf_nmpc_tpu_torch.utils import accuracy as acc
@@ -2269,13 +2342,7 @@ def phase_formulation(dev, card) -> dict:
     del cap, inputs
 
     # -- the two paths at full width
-    lin_run = (lin_kernels.lin_y_sens, lambda a: lin_kernels.lin_y_sens_plain(a[0], *a[2:]),
-               lin_cost, None)
-    x3 = (lambda *a: sdf_fused.sdf_value_grad(*a, mode="f32x3"),
-          lambda a, _p=sdf_plain("sdf_fused_x3"): _p(*a), sdf_cost, None)
-    cond_run = (condense_kernel.condense, lambda a: condense_kernel.condense_plain(*a),
-                condense_cost, None)
-    ip_run = (ip_kernel.ip_phase, lambda a: ip_kernel.ip_phase_plain(*a), ip_cost, None)
+    lin_run, x3, cond_run, ip_run = fused_runs().values()
     for variant, per_step, path_runs in (
             ("recfeas", recfeas_per_step, {"lin_y_sens": lin_run, "sdf_fused_x3": x3,
                                            "condense": cond_run, "ip_phase": ip_run}),
@@ -2330,6 +2397,262 @@ def phase_formulation(dev, card) -> dict:
     log(json.dumps({"formulation": report}))
     out["report"] = report
     return out
+
+
+def encoder_on_card(dev, card, cfg) -> tuple:
+    """Phase 18a: the trained encoder (strict resolution gate) on the 8
+    config-3 scenes rendered on the card, its f32 latents against the f64
+    CPU encoder on the same images under LATENT_RULE, once, with cuDNN as
+    the port's encoder path leaves it (benchmark off, TF32 off, algorithms
+    not pinned).  Returns (f32 encoder, images, report)."""
+    from sdf_nmpc_tpu_torch.utils import accuracy as acc
+
+    t0 = time.perf_counter()
+    enc = acc.config3_encoder(cfg, torch.float32, dev)
+    load_s = time.perf_counter() - t0
+    n_par = sum(p.numel() for p in enc.parameters())
+    render_ms = cuda_ms(lambda: acc.config3_images(cfg, torch.float32, dev), reps=3)
+    imgs = acc.config3_images(cfg, torch.float32, dev)
+    log(f"perception: trained encoder ({n_par} parameters, batch norm "
+        f"{any(isinstance(m, torch.nn.BatchNorm2d) for m in enc.modules())}) loaded in "
+        f"{load_s:.2f} s; {imgs.shape[0]} config-3 scenes rendered on the card at "
+        f"{tuple(imgs.shape[1:])} (48 sphere-tracing steps) in {render_ms:.3f} ms; card {card}")
+    enc64 = acc.config3_encoder(cfg, torch.float64, torch.device("cpu"))
+    with torch.no_grad():
+        ref = enc64(imgs.double().cpu()[:, None])
+        z = enc(imgs[:, None])
+    torch.cuda.synchronize()
+    limit = LATENT_RULE * (1 + float(ref.abs().max()))
+    err = float((z.double().cpu() - ref).abs().max())
+    setting = (f"cudnn benchmark {torch.backends.cudnn.benchmark}, deterministic "
+               f"{torch.backends.cudnn.deterministic}, allow_tf32 "
+               f"{torch.backends.cudnn.allow_tf32}")
+    log(f"perception: card f32 latents vs the f64 CPU encoder on the same images: max |d| "
+        f"{err:.3e} (limit {limit:.3e} = {LATENT_RULE} (1 + max |z| {float(ref.abs().max()):.3f})); "
+        f"{setting}; card {card}")
+    if not err <= limit:
+        raise AssertionError("perception: card latents beyond the rule")
+    return enc, imgs, {"latent_max_err": err, "latent_limit": limit, "cudnn": setting,
+                       "render_ms_8": render_ms}
+
+
+def config3_contract(dev, card, part, peaks) -> tuple:
+    """Phase 18b: check_config3_accuracy on the card (default settings,
+    kernel 2's f32x3 route) against tests/golden/config3_u0.npz, kernels
+    1-4 held against their plain versions on every launch of that cold step
+    and timed (the profiler's kernel events of that step).  Returns (rows,
+    report)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdf_nmpc_tpu_torch.ops import _lib
+    from sdf_nmpc_tpu_torch.utils import accuracy as acc
+
+    used = ["lin_y_sens", "sdf_fused_x3", "condense", "ip_phase"]
+    _lib.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            Capture() as cap:
+        out = acc.check_config3_accuracy(device=dev)
+    counts = dict(_lib.launch_counts)
+    launched_only("config 3", counts, used)
+    ok = out["n_ok"] == out["n_scen"] == acc.CONFIG3_SCEN and (
+        out["u0_max_err"] <= acc.CONTRACT_MAX)
+    log(f"config 3 contract (render -> encode -> one cold step, B={out['n_scen']}) vs the f64 "
+        f"oracle: u0 max {out['u0_max_err']:.4e} mean {out['u0_mean_err']:.4e}, "
+        f"{out['n_ok']}/{out['n_scen']} status OK, <= {acc.CONTRACT_MAX}: "
+        f"{'pass' if ok else 'FAIL'}; card {card}")
+    if not ok:
+        raise AssertionError("config 3: the contract failed")
+    errs = check_all(cap, "config 3", sdf_route="sdf_fused_x3")
+    calls = {name: cap.args("sdf" if name == "sdf_fused_x3" else name) for name in used}
+    log(f"kernel numbers, config 3: the launches of that cold step, B={out['n_scen']}")
+    rows = kernel_rows({k: fused_runs()[k] for k in used}, calls, counts, errs, peaks, part,
+                       {"sdf_fused_x3": (3.0, TF32_PEAKS[part])},
+                       device=profiled_kernel_ms(prof, used))
+    return rows, out
+
+
+def ring_frame(img, cfg):
+    """A raw uint16 depth frame (sensor units) of a dmax-normalized range
+    image: what a depth camera would send for it."""
+    from sdf_nmpc_tpu_torch.perception.preprocessing import depth2range_map
+
+    H, W = img.shape
+    rm = depth2range_map(H, W, float(cfg.sensor.hfov), float(cfg.sensor.vfov))
+    units = float(cfg.sensor.dmax) * 1000.0 / float(cfg.sensor.mm_resolution)
+    return np.rint(img.cpu().numpy() / rm * units).astype(np.uint16)
+
+
+def mission_tick(dev, card, enc, part, peaks) -> tuple:
+    """Phase 18c: the image-fed MissionServer at B=1 around the port's Nmpc
+    (default settings, fused path, the trained NeuralDF): each tick scene 0
+    is rendered from the camera's pose, sent as a raw uint16 depth frame
+    through the FrameRing (ClipDistance + Depth2Range in native code), and
+    the tick reads the ring, encodes the frame (feed_image) and solves
+    toward a waypoint past the blocking sphere.  Returns (rows of kernels
+    1-4 timed on one more tick's launches, report)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdf_nmpc_tpu_torch.config import sensor_extrinsics
+    from sdf_nmpc_tpu_torch.controller import Nmpc
+    from sdf_nmpc_tpu_torch.math import quat2rot
+    from sdf_nmpc_tpu_torch.ops import _lib
+    from sdf_nmpc_tpu_torch.perception import VaeRuntime
+    from sdf_nmpc_tpu_torch.ref_gen import Waypoint
+    from sdf_nmpc_tpu_torch.runtime import FrameRing, MissionServer
+    from sdf_nmpc_tpu_torch.sim import render_range_image
+    from sdf_nmpc_tpu_torch.utils import accuracy as acc
+
+    cfg, ocp, _, _ = acc.build_setup(device=dev)
+    nmpc = Nmpc(cfg, ocp=ocp)
+    # the ring hands over dmax-normalized range images: the runtime's own
+    # pipeline then only reshapes them
+    vae = VaeRuntime(cfg.replace(sensor=dict(is_normalized=True, is_depth=False)), enc,
+                     device=dev)
+    enc_ms = []
+    encode = vae.encode
+
+    def timed_encode():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = encode()
+        end.record()
+        end.synchronize()
+        enc_ms.append(start.elapsed_time(end))
+        return out
+
+    vae.encode = timed_encode
+    server = MissionServer(cfg, nmpc, vae)
+    # a depth camera sending uint16 millimetres (raw * mm_resolution / 1000 = metres)
+    cam = cfg.replace(sensor=dict(mm_resolution=1.0))
+    ring = FrameRing(cam)
+    scene = acc._config3_scenes(1, dev)
+    scene = type(scene)(*[a[0] for a in scene])
+    B_p_C, B_R_C = (np.asarray(a, dtype=float) for a in sensor_extrinsics(cfg))
+    H, W = (int(v) for v in cfg.sensor.shape_imgs[-2:])
+    x = np.zeros(ocp.nx)
+    x[3] = 1.0
+    x[:3] = -B_p_C  # the camera at the origin, where the config-3 images are rendered
+    t, dt = 0.0, float(cfg.mpc.control_loop_time) * 1e-3
+    server.feed_state(x, t)
+    server.set_flag(True)
+    server.goto([Waypoint([3.5, 0.0, 0.0])])
+    tick_ms, solve_ms, budgets, ring_err = [], [], [], 0.0
+
+    def one_tick():
+        nonlocal x, t, ring_err
+        W_R_B = quat2rot(torch.as_tensor(x[3:7])).numpy()
+        img = render_range_image(scene, torch.as_tensor(W_R_B @ B_p_C + x[:3], device=dev),
+                                 torch.as_tensor(W_R_B @ B_R_C, dtype=torch.float32, device=dev),
+                                 H, W, float(cfg.sensor.hfov), float(cfg.sensor.vfov),
+                                 float(cfg.sensor.dmax))
+        ring.push(ring_frame(img, cam), timestamp=t)  # the sensor's thread, outside the tick
+        budgets.append(nmpc.budget)
+        t0 = time.perf_counter()
+        frame, ts, stale = ring.latest(timeout=float(cfg.mission.timeout_img), now=t)
+        server.feed_state(x, t)
+        server.feed_image(frame, x[:3], W_R_B, ts)
+        tick = server.tick(t)
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        solve_ms.append(nmpc.get_t() * 1e3)
+        ring_err = max(ring_err, float(np.abs(frame - img.cpu().numpy()).max()))
+        lo, hi = nmpc.cmd_TRPYr_min, nmpc.cmd_TRPYr_max
+        if stale or not tick.flag_active or tick.fail_count or not (
+                np.isfinite(tick.cmd).all() and (tick.cmd >= lo).all() and (tick.cmd <= hi).all()):
+            raise AssertionError(f"mission tick at t={t:.3f}: stale {stale}, {tick}")
+        x = nmpc.get_matrices()[0][1]  # the plant follows the prediction
+        t += dt
+        return tick
+
+    _lib.reset_launch_counts()
+    for _ in range(MISSION_TICKS):
+        tick = one_tick()
+    counts = dict(_lib.launch_counts)
+    label = "MissionServer, image-fed, att, B=1, default settings"
+    launched_only(label, counts, ["lin_y_sens", "sdf_fused_x3", "condense", "ip_phase"])
+    if budgets[:5] != ["cold", "warm", "warm", "warm", "steady"] or set(budgets[5:]) != {"steady"}:
+        raise AssertionError(f"{label}: budget promotion {budgets}")
+    med = lambda a: (float(np.median(a[1:])), float(np.percentile(a[1:], 99)))
+    rep = {"tick_ms": med(tick_ms), "encode_ms": med(enc_ms), "solve_ms": med(solve_ms),
+           "first_tick_ms": tick_ms[0], "ring_max_err": ring_err,
+           "distance_to_goal": float(np.linalg.norm(x[:3] - [3.5, 0.0, 0.0]))}
+    log(f"{label}, {MISSION_TICKS} ticks (waypoint 3.5 m ahead past the blocking sphere, "
+        f"frames through the FrameRing, max |ring frame - rendered| {ring_err:.2e}): mode "
+        f"{tick.mode.value}, flag active, no failure, last cmd "
+        f"{np.round(tick.cmd, 4).tolist()}, {rep['distance_to_goal']:.3f} m from the goal; "
+        f"launches {({k: v for k, v in counts.items() if v})}")
+    for name, (m, p99) in (("whole tick (host wall)", rep["tick_ms"]),
+                           ("encode (CUDA events)", rep["encode_ms"]),
+                           ("Nmpc.get_t()", rep["solve_ms"])):
+        log(f"{label}: {name} over ticks 2-{MISSION_TICKS}: median {m:.3f} ms, p99 {p99:.3f} "
+            f"ms; card {card}")
+    # one more tick, profiled: kernels 1-4 timed on its launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            Capture() as cap:
+        _lib.reset_launch_counts()
+        one_tick()
+        counts = dict(_lib.launch_counts)
+    used = ["lin_y_sens", "sdf_fused_x3", "condense", "ip_phase"]
+    calls = {name: cap.args("sdf" if name == "sdf_fused_x3" else name) for name in used}
+    errs = check_all(cap, "mission tick", sdf_route="sdf_fused_x3")
+    log(f"kernel numbers, {label}: the launches of one tick")
+    rows = kernel_rows({k: fused_runs()[k] for k in used}, calls, counts, errs, peaks, part,
+                       {"sdf_fused_x3": (3.0, TF32_PEAKS[part])},
+                       device=profiled_kernel_ms(prof, used))
+    return rows, rep
+
+
+def encoder_throughput(dev, card, enc, imgs, peaks) -> dict:
+    """Phase 18d: images/s of the encoder at ENCODER_B, each over
+    ENCODER_CHAINED chained encodes after a warm-up, ended by one
+    synchronize; peak memory per batch size; beside the bound of its
+    ENCODER_GFLOP per image at the card's FP32 peak."""
+    out = {}
+    for B in ENCODER_B:
+        x = imgs[torch.arange(B, device=dev) % imgs.shape[0]][:, None].contiguous()
+        with torch.no_grad():
+            enc(x)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(ENCODER_CHAINED):
+                enc(x)
+            end.record()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / ENCODER_CHAINED * 1e3
+        ms = start.elapsed_time(end) / ENCODER_CHAINED
+        bound_ms = B * ENCODER_GFLOP * 1e9 / peaks[0] * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out[B] = {"ms": ms, "images_per_s": B / ms * 1e3, "bound_ms": bound_ms,
+                  "peak_gib": peak}
+        log(f"encoder throughput, B={B}: {ms:.4f} ms per encode (CUDA events; host wall "
+            f"{wall:.4f}), {B / ms * 1e3:.1f} images/s, bound {bound_ms:.4f} ms at the FP32 "
+            f"peak ({ms and bound_ms / ms:.1%}), peak memory {peak:.3f} GiB; card {card}")
+    return out
+
+
+def phase_perception(dev, card) -> dict:
+    """Phase 18, BASELINE config 3 (``--perception`` runs phases 1, 2 and
+    this one alone): the trained encoder on the card against the f64 CPU
+    encoder, the config-3 contract with kernels 1-4 held and timed, the
+    image-fed MissionServer tick at B=1, the encoder's throughput.  Returns
+    the kernels' per-path rows and the report."""
+    from sdf_nmpc_tpu_torch.config import default_config
+
+    part, peaks = card_peaks(card.split(",")[0])
+    cfg = default_config()
+    enc, imgs, report = encoder_on_card(dev, card, cfg)
+    rows, report["config3"] = config3_contract(dev, card, part, peaks)
+    n = report["config3"]["n_scen"]
+    per_path = {row["name"]: {f"config3, cold, B={n}": row} for row in rows}
+    rows, report["mission"] = mission_tick(dev, card, enc, part, peaks)
+    for row in rows:
+        per_path[row["name"]]["config3, MissionServer tick, B=1"] = row
+    report["encoder"] = encoder_throughput(dev, card, enc, imgs, peaks)
+    log(json.dumps({"perception": report}))
+    return {"per_path": per_path, "report": report}
 
 
 # source -> (its C functions, the kernels timed, the models whose steady
@@ -2583,6 +2906,8 @@ def main(argv=None) -> int:
                     help="run only the composed main path and Nmpc, then stop")
     ap.add_argument("--formulation", action="store_true",
                     help="run only the formulation extras (phase 17), then stop")
+    ap.add_argument("--perception", action="store_true",
+                    help="run only perception, BASELINE config 3 (phase 18), then stop")
     args = ap.parse_args(argv)
     card = phase_card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2601,6 +2926,9 @@ def main(argv=None) -> int:
             return 0
     if args.formulation:
         phase_formulation(dev, card)
+        return 0
+    if args.perception:
+        phase_perception(dev, card)
         return 0
     if args.composed:
         _, t_step, steady, state, inputs = phase_main_path(
@@ -2635,14 +2963,16 @@ def main(argv=None) -> int:
     other = phase_other_rows(dev, card)
     log(json.dumps({"config_1": config1, "other_rows": other}))
     extras = phase_formulation(dev, card)
+    perception = phase_perception(dev, card)
     for i, row in enumerate(rows):  # kernels 1 and 3: att's numbers, every model's beside
         if row["name"] in ("lin_y_sens", "condense"):
             rows[i] = kernel_row_per_model({"att": row, **per_kernel[row["name"]]}, "att")
     # kernel 9: att's (under sdf_cost) at top level, all six families beside
     rows.append(kernel_row_per_model({**extras["erk4_sens"], **per_kernel["erk4_sens"]}, "att"))
-    for row in rows:  # the formulation extras' readings of kernels 1-8, per path
-        if row["name"] in extras["per_path"]:
-            row["per_path"] = extras["per_path"][row["name"]]
+    for row in rows:  # the formulation extras' and config 3's readings of kernels 1-8
+        for per_path in (extras["per_path"], perception["per_path"]):
+            if row["name"] in per_path:
+                row.setdefault("per_path", {}).update(per_path[row["name"]])
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

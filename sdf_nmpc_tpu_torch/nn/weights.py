@@ -1,4 +1,5 @@
-"""Shipped-weights loading: the trained NeuralDF of ``<repo>/weights/``.
+"""Shipped-weights loading: the trained NeuralDF and the trained VAE encoder
+of ``<repo>/weights/``.
 
 ``weights/sdf.msgpack`` is a flax ``msgpack_serialize`` tree.  The GPU host
 has neither flax nor msgpack, so this module carries its own reader of that
@@ -7,13 +8,19 @@ tuple ``(shape, dtype name, C-order bytes)``, ext type 3 a numpy scalar the
 same way, and arrays above 1 GiB arrive as ``__msgpack_chunked_array__``
 dicts.  ``params_from_jax`` turns the flax tree (numpy leaves) into the port's
 ``NeuralDF`` state dict: a flax Dense ``kernel`` is (in, out), a torch Linear
-``weight`` is (out, in).
+``weight`` is (out, in).  ``encoder_from_jax`` and ``decoder_from_jax`` do
+the same for the VAE (``nn/vae.py``): convolution kernels HWIO -> OIHW, the
+transposed convolutions' flipped (kh, kw, in, out) kernels -> torch's
+unflipped (in, out, kh, kw), BatchNorm scale / bias / batch_stats -> weight
+/ bias / running statistics, and the head rows from flax's (h, w, c) flatten
+order to torch's (c, h, w).
 """
 
 from __future__ import annotations
 
 import json
 import struct
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -178,3 +185,99 @@ def load_prod_latents(weights_dir=None):
     d = Path(weights_dir) if weights_dir else WEIGHTS_DIR
     f = d / "latents.npy"
     return np.load(f) if f.exists() else None
+
+
+def meta_img_shape(meta) -> tuple[int, int] | None:
+    """(H, W) the encoder was trained at, parsed from meta['img'] 'HxW'."""
+    img = (meta or {}).get("img")
+    if not img:
+        return None
+    h, w = str(img).lower().split("x")
+    return int(h), int(w)
+
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def vae_state_from_jax(variables, heads=(), side="in", chw=(0, 0, 0)) -> dict:
+    """Port state dict of a flax tree of the VAE's layers (numpy leaves;
+    ``params`` and ``batch_stats``).  ``heads``: the Dense layers that meet
+    a (C, H, W) = ``chw`` map in flax's (h, w, c) order, on their input
+    (``side`` 'in', the encoder heads) or output ('out', the decoder's first
+    layer)."""
+    C, H, W = chw
+    state = {}
+    for path, a in _flat(variables.get("params", {})):
+        layer, leaf = ".".join(path[:-1]), path[-1]
+        head = path[-2] in heads
+        if leaf == "kernel" and a.ndim == 4 and path[-2].startswith("ConvTransposeTorch"):
+            a = a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]  # (in, out, kh, kw), unflipped
+        elif leaf == "kernel" and a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        elif leaf == "kernel":
+            if head and side == "in":  # rows (h, w, c) -> (c, h, w)
+                a = a.reshape(H * W, C, -1).transpose(1, 0, 2).reshape(C * H * W, -1)
+            elif head:  # columns
+                a = a.reshape(-1, H * W, C).transpose(0, 2, 1).reshape(-1, C * H * W)
+            a = a.T
+        elif leaf == "bias" and head and side == "out":
+            a = a.reshape(H * W, C).T.reshape(-1)
+        elif leaf not in ("bias", "scale"):
+            raise ValueError(f"unknown VAE parameter {'/'.join(path)}")
+        state[f"{layer}.{'bias' if leaf == 'bias' else 'weight'}"] = torch.from_numpy(
+            np.array(a, order="C"))
+    for path, a in _flat(variables.get("batch_stats", {})):
+        layer, leaf = ".".join(path[:-1]), path[-1]
+        state[f"{layer}.running_{leaf}"] = torch.from_numpy(np.array(a, order="C"))
+        state[f"{layer}.num_batches_tracked"] = torch.tensor(0)
+    return state
+
+
+def encoder_from_jax(variables) -> dict:
+    """``Encoder`` state dict from a flax Encoder tree of numpy arrays
+    (``{'params': ..., 'batch_stats': ...}``); the heads read a 512 x 2 x 2
+    pooled map."""
+    return vae_state_from_jax(variables, ("mean", "logvar"), "in", (512, 2, 2))
+
+
+def decoder_from_jax(variables, unflatten_hw=(8, 15)) -> dict:
+    """``Decoder`` state dict from a flax Decoder tree of numpy arrays; its
+    first Dense layer feeds a 512 x unflatten_hw map."""
+    return vae_state_from_jax(variables, ("Dense_0",), "out", (512, *unflatten_hw))
+
+
+def load_prod_encoder(weights_dir=None, expect_img=None, strict=False, device="cuda"):
+    """(Encoder in eval mode on ``device``, meta) for the trained VAE
+    encoder, or None if absent.  ``batchnorm`` comes from the meta.
+
+    expect_img: the (H, W) the caller will feed.  The adaptive pooling runs
+    any shape, but one away from the trained resolution (meta['img']) is out
+    of distribution: on a mismatch this warns, and under ``strict`` returns
+    None."""
+    from .vae import Encoder
+
+    dev = resolve_device(device)
+    d = Path(weights_dir) if weights_dir else WEIGHTS_DIR
+    meta = _meta(d)
+    if meta is None or not (d / "vae_encoder.msgpack").exists():
+        return None
+    if expect_img is not None:
+        trained = meta_img_shape(meta)
+        if trained is not None and tuple(expect_img) != trained:
+            msg = (f"prod VAE encoder was trained at {trained[0]}x{trained[1]} but caller feeds "
+                   f"{tuple(expect_img)[0]}x{tuple(expect_img)[1]}: latents will be out of the "
+                   "training distribution; resize inputs to the trained resolution")
+            if strict:
+                warnings.warn(msg + " (strict: returning None)")
+                return None
+            warnings.warn(msg)
+    module = Encoder(1, meta["size_latent"], dropout_rate=0.0,
+                     batchnorm=bool(meta.get("batchnorm", False)))
+    module.load_state_dict(encoder_from_jax(msgpack_restore(
+        (d / "vae_encoder.msgpack").read_bytes())))
+    return module.eval().to(dev), meta

@@ -29,6 +29,14 @@ each scenario from one captured tick to the next, as a controller does
 with the cold budget, so that tick 1 starts from the duals a controller
 would hand it).
 
+BASELINE config 3 (``solve_config3_batch``, ``check_config3_accuracy``;
+JAX :223-355) puts the trained VAE encoder inside the contract: 8 blocking
+scenes rendered by sphere tracing at the sensor's 270 x 480, encoded, the
+latent written into the parameters, one cold step, held against the CPU
+f64 render -> encode -> solve oracle ``tests/golden/config3_u0.npz``
+(max <= 1e-3, every status OK).  The JAX package vmaps one jitted program
+over the scenes; the port batches them along the scenario axis.
+
 Gates: the JAX package's CI gate (mean <= 2.5e-4, max <= 2.5e-3,
 tests/test_oracle_parity.py:82-83) and the strict contract (max <= 1e-3 on
 cold, warm ticks 1..steady_after and steady ticks after them, bench.py:126).
@@ -47,6 +55,8 @@ GOLDEN = Path(__file__).resolve().parents[2] / "tests" / "golden"
 REF_NPZ = GOLDEN / "accuracy_ref_u0.npz"
 ORACLE_NPZ = GOLDEN / "oracle_u0.npz"
 WARM_NPZ = GOLDEN / "warm_ref.npz"
+CONFIG3_NPZ = GOLDEN / "config3_u0.npz"
+CONFIG3_SCEN = 8
 N_SCEN = 32
 FAMILY_SCEN = 8  # cold scenarios per family in oracle_u0.npz
 WARM_SCEN = 16
@@ -212,6 +222,117 @@ def check_accuracy(device="cuda", solver_over=None, model=None, variant="sdf"):
     err = np.abs(u0 - ref).max(axis=1)
     return {"u0_max_err": float(err.max()), "u0_mean_err": float(err.mean()),
             "n_ok": int((status == 0).sum()), "n_scen": n}
+
+
+def _config3_scenes(n: int = CONFIG3_SCEN, device="cuda"):
+    """n deterministic blocking scenes (two spheres each: one blocks the
+    corridor toward the goal, one is clutter), stacked along a scene axis;
+    float32, as the JAX package builds them."""
+    from ..sim import Scene
+
+    rng = np.random.default_rng(7)
+    scenes = []
+    for _ in range(n):
+        c1 = [1.6 + rng.uniform(0.0, 1.2), rng.uniform(-0.35, 0.35), rng.uniform(-0.25, 0.25)]
+        r1 = rng.uniform(0.3, 0.5)
+        c2 = [rng.uniform(2.2, 3.4), rng.uniform(-1.2, 1.2), rng.uniform(-0.5, 0.5)]
+        r2 = rng.uniform(0.25, 0.45)
+        scenes.append(Scene.make(spheres=[(c1, r1), (c2, r2)], device=device))
+    return Scene.stack(scenes)
+
+
+def config3_images(cfg, dtype, device, n=CONFIG3_SCEN):
+    """(n, H, W) range images of the config-3 scenes, rendered in ``dtype``
+    from the camera at the origin looking along +x."""
+    from ..sim import render_range_image
+
+    H, W = (int(v) for v in cfg.sensor.shape_imgs[-2:])
+    scenes = _config3_scenes(CONFIG3_SCEN, device).to(dtype)
+    scenes = type(scenes)(*[a[:n] for a in scenes])
+    return render_range_image(scenes, torch.zeros(3, dtype=dtype, device=device),
+                              torch.eye(3, dtype=dtype, device=device), H, W,
+                              float(cfg.sensor.hfov), float(cfg.sensor.vfov),
+                              float(cfg.sensor.dmax))
+
+
+def config3_encoder(cfg, dtype, device):
+    """The trained encoder at the sensor's resolution (strict gate), in
+    ``dtype`` on ``device``; RuntimeError if weights/ lacks it."""
+    from ..nn.weights import load_prod_encoder
+
+    H, W = (int(v) for v in cfg.sensor.shape_imgs[-2:])
+    loaded = load_prod_encoder(expect_img=(H, W), strict=True, device=device)
+    if loaded is None:
+        raise RuntimeError("the config-3 contract needs the trained encoder in weights/ at the "
+                           "configured sensor resolution")
+    return loaded[0].to(dtype)
+
+
+def config3_inputs(cfg, ocp, layout, n, dtype, device):
+    """(SolveInputs, initial state) of the config-3 scenarios: starts near
+    the camera pose, the goal 3.5 m ahead past the blocking sphere, the
+    flag on, the camera at the origin; the latent columns still zero."""
+    from ..ref_gen import Ref
+    from ..solver import SolveInputs, init_state
+
+    rng = np.random.default_rng(3)
+    N = ocp.N
+    x0s, ps, yrs, Ws = [], [], [], []
+    for _ in range(n):
+        x0 = np.zeros(ocp.nx)
+        x0[3] = 1.0
+        x0[:3] = rng.normal(size=3) * 0.2
+        x0[7:10] = rng.normal(size=3) * 0.3
+        if ocp.nx > 10:
+            x0[10:] = rng.normal(size=ocp.nx - 10) * 0.1
+        p = np.zeros((N + 1, layout.np_total))
+        layout.set_flag(p, 1.0)
+        layout.set_camera(p, np.zeros(3), np.eye(3))
+        layout.set_q_d(p, [1, 0, 0, 0])
+        ref = Ref(cfg).use_constrained_weights(True)
+        ref.p = np.array([3.5, 0.0, 0.0])
+        yr, Wrow = ocp.pack_ref(ref)
+        x0s.append(x0)
+        ps.append(p)
+        yrs.append(yr)
+        Ws.append(Wrow)
+    T = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    yrs, Ws = np.stack(yrs), np.stack(Ws)
+    inputs = SolveInputs(x0=T(np.stack(x0s)), yref=T(np.tile(yrs[:, None], (1, N, 1))),
+                         W=T(np.tile(Ws[:, None], (1, N, 1))), yrefN=T(yrs[:, : ocp.nyN]),
+                         WN=T(Ws[:, : ocp.nyN]), p=T(np.stack(ps)))
+    return inputs, init_state(ocp, inputs.x0, dtype, dual_warm_start=_dual_ws(cfg))
+
+
+def solve_config3_batch(dtype_cfg=None, n: int = None, device="cuda"):
+    """BASELINE config 3: render the scenes -> encode them with the trained
+    encoder -> write each latent into its scenario's parameters -> one cold
+    step, batched over the scenarios.  Returns (u0, status) in numpy.
+    ``dtype_cfg``: cfg.solver overrides (``dtype`` float64 renders and
+    encodes in f64 too)."""
+    from ..solver import make_rti_step
+
+    cfg, ocp, layout, _ = build_setup(device, dtype_cfg)
+    dtype = torch.float64 if str(cfg.solver.dtype) == "float64" else torch.float32
+    n = n or CONFIG3_SCEN
+    dev = ocp.device
+    enc = config3_encoder(cfg, dtype, dev)
+    inputs, state = config3_inputs(cfg, ocp, layout, n, dtype, dev)
+    with torch.no_grad():
+        latent = enc(config3_images(cfg, dtype, dev, n)[:, None])
+    p = inputs.p.clone()
+    p[:, :, layout.latent_start:] = latent[:, None, :]
+    res = make_rti_step(ocp, cfg, with_evals=False)(state, inputs._replace(p=p))
+    return res.u0.double().cpu().numpy(), res.status.cpu().numpy()
+
+
+def check_config3_accuracy(device="cuda"):
+    """The f32 render -> encode -> solve pipeline against the f64 oracle."""
+    ref = np.load(CONFIG3_NPZ)["u0"]
+    u0, status = solve_config3_batch(device=device)
+    err = np.abs(u0 - ref).max(axis=1)
+    return {"u0_max_err": float(err.max()), "u0_mean_err": float(err.mean()),
+            "n_ok": int((status == 0).sum()), "n_scen": int(u0.shape[0])}
 
 
 def warm_npz_path(model=None) -> Path:

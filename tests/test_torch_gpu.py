@@ -936,3 +936,79 @@ def test_config1_step_launches_kernels_1_5_6(cuda_device):
     assert launched == {"lin_y_sens": 1, "factor_solve": 20, "solve": 20}
     assert rep["n_ok"] == rep["n_scen"] == 32
     assert accuracy.ci_gate_ok(rep["u0_mean_err"], rep["u0_max_err"])
+
+
+@pytest.mark.gpu
+def test_trained_encoder_on_card_matches_f64(cuda_device):
+    """The trained encoder in f32 on the card against the f64 CPU encoder on
+    the 8 config-3 images rendered on the card: max |d| within 1e-4 of
+    (1 + max |latent|)."""
+    from sdf_nmpc_tpu_torch.config import default_config
+    from sdf_nmpc_tpu_torch.utils import accuracy
+
+    cfg = default_config()
+    imgs = accuracy.config3_images(cfg, torch.float32, cuda_device)
+    assert imgs.is_cuda and imgs.shape == (8, 270, 480)
+    enc = accuracy.config3_encoder(cfg, torch.float32, cuda_device)
+    enc64 = accuracy.config3_encoder(cfg, torch.float64, torch.device("cpu"))
+    with torch.no_grad():
+        got = enc(imgs[:, None]).double().cpu()
+        want = enc64(imgs.double().cpu()[:, None])
+    err = float((got - want).abs().max())
+    print(f"card latents vs f64: {err:.3e}")
+    assert err <= 1e-4 * (1 + float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_config3_contract_on_card(cuda_device):
+    """BASELINE config 3 on the card (render -> trained encoder -> one cold
+    step, default settings): u0 max <= 1e-3 against the f64 oracle
+    config3_u0.npz, all 8 statuses OK, kernels 1-4 launched and no other."""
+    from sdf_nmpc_tpu_torch.ops import _lib
+    from sdf_nmpc_tpu_torch.utils import accuracy
+
+    before = dict(_lib.launch_counts)
+    rep = accuracy.check_config3_accuracy(device=cuda_device)
+    launched = {k: v - before[k] for k, v in _lib.launch_counts.items() if v != before[k]}
+    print(rep, launched)
+    assert launched == {"lin_y_sens": 1, "sdf_fused_x3": 1, "condense": 1, "ip_phase": 2}
+    assert rep["n_ok"] == rep["n_scen"] == 8
+    assert rep["u0_max_err"] <= accuracy.CONTRACT_MAX
+
+
+@pytest.mark.gpu
+def test_image_fed_mission_tick_on_card(cuda_device):
+    """One MissionServer tick fed a raw uint16 depth frame through the
+    FrameRing: the preprocessed image, the latent and the controller's
+    parameter tensors live on the card, the flag is active, the command is
+    finite, and the tick launched kernels 1-4."""
+    from sdf_nmpc_tpu_torch.controller import Nmpc
+    from sdf_nmpc_tpu_torch.ops import _lib
+    from sdf_nmpc_tpu_torch.perception import VaeRuntime
+    from sdf_nmpc_tpu_torch.ref_gen import Waypoint
+    from sdf_nmpc_tpu_torch.runtime import FrameRing, MissionServer
+    from sdf_nmpc_tpu_torch.utils import accuracy
+
+    cfg, ocp, _, _ = accuracy.build_setup(device=cuda_device)
+    cam = cfg.replace(sensor=dict(mm_resolution=1.0))  # uint16 millimetres
+    vae = VaeRuntime(cfg.replace(sensor=dict(is_normalized=True, is_depth=False)),
+                     accuracy.config3_encoder(cfg, torch.float32, cuda_device),
+                     device=cuda_device)
+    nmpc = Nmpc(cfg, ocp=ocp)
+    server = MissionServer(cfg, nmpc, vae)
+    ring = FrameRing(cam)
+    raw = (RNG.uniform(800, 5000, size=(270, 480))).astype(np.uint16)
+    ring.push(raw, timestamp=0.0)
+    frame, ts, stale = ring.latest(now=0.0)
+    x = np.zeros(10)
+    x[3] = 1.0
+    server.feed_state(x, 0.0)
+    server.set_flag(True)
+    server.goto([Waypoint([3.5, 0.0, 0.0])])
+    before = dict(_lib.launch_counts)
+    server.feed_image(frame, x[:3], np.eye(3), ts)
+    tick = server.tick(0.0)
+    launched = {k: v - before[k] for k, v in _lib.launch_counts.items() if v != before[k]}
+    assert not stale and vae.img.is_cuda and vae.latent.is_cuda and ocp.device.type == "cuda"
+    assert tick.flag_active and tick.fail_count == 0 and np.isfinite(tick.cmd).all()
+    assert launched == {"lin_y_sens": 1, "sdf_fused_x3": 1, "condense": 1, "ip_phase": 2}
