@@ -7,8 +7,10 @@ Two paths of BASELINE config 4 (att quad, N=20, the trained 4x256 NeuralDF
 of weights/, FoV rows, the condensed QP with nz=80, nc=63), BASELINE
 config 1 (no SDF, nc=0; phase 15), config 4 with the formulation extras
 (the SDF cost row; recursive feasibility and stability, nc=68; phase 17)
-and BASELINE config 3 (a depth image through the trained encoder to the
+BASELINE config 3 (a depth image through the trained encoder to the
 latent of config 4's step, and the image-fed mission tick; phase 18),
+config 4 at long horizons on the stage-wise QP (N = 60; phase 19), the
+closed loop (phase 20) and the solver routes (phase 21),
 run through
 ``sdf_nmpc_tpu_torch``'s public entry points: the fused path (kernels 1-4,
 the default solver settings) and the composed QP path with
@@ -142,13 +144,45 @@ failure raises and exits non-zero before the result line:
    (CUDA events) and ``Nmpc.get_t()``, then kernels 1-4 held and timed on
    one more tick's launches; the encoder's images/s at B = 1, 8, 64, 256
    (20 chained encodes ended by one synchronize) and peak memory, the
-   render's ms for the 8 scenes.
+   render's ms for the 8 scenes;
+19. long horizons on the stage-wise (Riccati) QP backend
+   (``--long-horizon``): qp_backend riccati at N = 20 on the 32 cold
+   starts against the golden (max <= 1e-3, 32/32 OK, the JAX package's
+   own contract), its warm and steady replays beside it; att at N = 60
+   (T = 4.5 s) and B = 8192, default settings ('auto' takes Riccati
+   beyond N = 20): one cold step with kernels 1 and 2 held on every
+   launch and the first 8 scenarios against the port's f64 CPU step
+   under the CI gate, then 20 chained steady steps (kernels 1 and 2 once
+   a step, none of kernels 3-8) and their busy share; props at N = 60,
+   one cold step at B = 1024 through kernel 9, held the same way;
+   ``Nmpc`` at B = 1 and N = 60, 31 ticks; qp_backend condensed forced at
+   N = 40 beside Riccati at N = 40, B = 8192, CROSS_STEADY chained steps
+   each (no busy share: one profiled Riccati step takes the profiler
+   tens of seconds to read back);
+20. the closed loop (``--closed-loop``): tests/test_sim.py's sphere scene
+   (latent 8, qp_iters 10, the scene oracle as the SDF row: kernels 1, 3
+   and 4) in f32, ``make_closed_loop`` at B = 1 over 120 ticks held by
+   that file's outcome rules (every status OK, min clearance > 0,
+   tracking error < 0.35, lateral excursion > 0.15), the flag off
+   colliding, a Monte Carlo of 1024 starts over 60 ticks (success 1.0,
+   collision 0; the loop's kernels held on one tick's launches);
+   perception in the loop on config 3's 8 scenes with the trained
+   NeuralDF and encoder, 6 chunks of 10 ticks, each chunk rendered at
+   270 x 480 from the current pose and encoded (statuses OK, finite;
+   ``summarize``, each scene's clearance and a chunk's render, encode and
+   solve ms printed);
+21. the solver routes (``--solver-routes``): one cold att step at B =
+   1024 on the 32 accuracy scenarios repeated under ``chol_impl: xla``,
+   ``chol_impl: custom``, ``lin_impl: xla``, ``qp_data_bf16`` and
+   ``qp_compute_dtype: float64``: u0 against the golden (the CI gate; not
+   gated under qp_data_bf16), the launches each route implies.
 
 The last lines are the ``kernels`` JSON (all nine kernels, kernel 2 as one
 row per route, each with its per-launch times ``launch_ms``; the rows of
 kernels 1, 3 and 9 carry each model's numbers under ``per_model``, and at
 top level att's (for kernel 9 att's under sdf_cost); the rows of kernels
-1-8 that the formulation extras and config 3 run carry those readings
+1-9 that the formulation extras, config 3, the long horizons and the
+closed loop run carry those readings
 under ``per_path``; kernel 4's row ``launch_k_s`` and
 ``geometry``, kernel 2's rows (f32, f32x3, bf16, mixed) and the
 rows of kernels 1, 3, 5, 7, 8 and 9 their ``geometry``; the ``launches`` of
@@ -186,6 +220,8 @@ print no result line):
         phases 1, 2 and 17: the formulation extras.
     python3 chip_smoke.py --perception
         phases 1, 2 and 18: perception, BASELINE config 3.
+    python3 chip_smoke.py --long-horizon | --closed-loop | --solver-routes
+        phases 1, 2 and 19 (20, 21) alone.
 """
 
 from __future__ import annotations
@@ -237,6 +273,29 @@ ENCODER_CHAINED = 20  # chained encodes per batch size
 MISSION_TICKS = 31  # image-fed MissionServer ticks (phase 18)
 LATENT_RULE = 1e-4  # card latents vs the f64 CPU encoder: max |d| <= LATENT_RULE (1 + max |z|)
 ENCODER_GFLOP = 4.34  # multiply-adds x 2 of the encoder per 270 x 480 image
+RIC = {"qp_backend": "riccati"}
+LONG_N = 60  # the JAX package's long horizon (tests/test_qp_riccati.py:79-100), T = 4.5 s
+CROSS_N = 40  # the condensed / Riccati crossover the JAX package quotes (sqp.py:101-107)
+NMPC_TICKS_LONG = 31  # Nmpc ticks at N = LONG_N (phase 19)
+CROSS_STEADY = 5  # chained steady steps of each N = CROSS_N path (phase 19)
+# the sphere scene of tests/test_sim.py: one sphere straight on the path to
+# the goal (2, 0, 0), its oracle as the SDF row, latent 8, qp_iters 10
+SPHERE = ([1.2, 0.05, 0.0], 0.35)
+LOOP_TICKS = 120  # closed-loop ticks (tests/test_sim.py)
+MC_B, MC_TICKS = 1024, 60  # the batched Monte Carlo of phase 20
+PERC_CHUNKS, PERC_TICKS = 6, 10  # perception in the loop: chunks x ticks per chunk
+# phase 21: route -> (its solver overrides, the kernels it launches, held to the CI gate)
+ROUTE_CHECKS = {
+    "chol_impl xla": ({"chol_impl": "xla"}, ("lin_y_sens", "sdf_fused_x3", "condense"), True),
+    "chol_impl custom": ({"chol_impl": "custom"}, ("lin_y_sens", "sdf_fused_x3", "condense"),
+                         True),
+    "lin_impl xla": ({"lin_impl": "xla"}, ("sdf_fused_x3", "ip_phase"), True),
+    "qp_data_bf16": ({"qp_data_bf16": True}, ("lin_y_sens", "sdf_fused_x3", "condense",
+                                              "ip_phase"), False),
+    "qp_compute_dtype float64": ({"qp_compute_dtype": "float64"},
+                                 ("lin_y_sens", "sdf_fused_x3", "condense", "factor_solve",
+                                  "solve", "stiff_factor_solve", "stiff_resolve"), True),
+}
 FUSED_KERNELS = {  # name -> (source in the repo, the TPU kernel it replaces)
     "lin_y_sens": ("sdf_nmpc_tpu_torch/csrc/lin_y_sens.cu",
                    "sdf_nmpc_tpu/ops/lin_kernels.py:173"),
@@ -1347,19 +1406,22 @@ def phase_accuracy_bf16(dev) -> dict:
 
 
 def phase_main_path(dev, card, over=None, per_step=None, label="fused path", model=None,
-                    variant="sdf", B=MAIN_B):
-    """B scenarios (MAIN_B), one cold step then N_STEADY chained steady
+                    variant="sdf", B=MAIN_B, N=None, n_steady=N_STEADY, synced=True):
+    """B scenarios (MAIN_B), one cold step then n_steady chained steady
     steps ended by one synchronize, launch counts set to 0 just before and
     read just after.  ``over``: solver overrides; ``per_step(steps)``: the
     launch count each kernel must reach; ``model``: a quad family other
     than att; ``variant``: accuracy.build_setup's ('nosdf' for BASELINE
-    config 1, 'recfeas' and 'sdf_cost' for the formulation extras)."""
+    config 1, 'recfeas' and 'sdf_cost' for the formulation extras);
+    ``N``: another horizon (phase 19); ``n_steady`` chained steps, and
+    ``synced``: the same steps again one at a time (phase 19 keeps its
+    host-paced paths' time down without the latter)."""
     from sdf_nmpc_tpu_torch.ops import _lib
     from sdf_nmpc_tpu_torch.solver import init_state, make_rti_step
     from sdf_nmpc_tpu_torch.utils import accuracy
 
     cfg, ocp, layout, _ = accuracy.build_setup(device=dev, solver_over=over, model=model,
-                                               variant=variant)
+                                               variant=variant, N=N)
     inputs = bench_inputs(ocp, cfg, layout, B, SEED, dev)
     cold = make_rti_step(ocp, cfg, budget="cold", with_evals=False)
     steady = make_rti_step(ocp, cfg, budget="steady", with_evals=False)
@@ -1373,20 +1435,20 @@ def phase_main_path(dev, card, over=None, per_step=None, label="fused path", mod
     res = cold(state0, inputs)
     n_ok_cold = int((res.status == 0).sum())
     torch.cuda.synchronize()
-    # as bench.py: N_STEADY chained steps ended by one synchronize, so the
+    # as bench.py: n_steady chained steps ended by one synchronize, so the
     # host queues each step while the card still runs the one before
     t0 = time.perf_counter()
-    for _ in range(N_STEADY):
+    for _ in range(n_steady):
         res = steady(res.state, inputs)
     issued = time.perf_counter() - t0  # the last step call has returned: host issue time
     torch.cuda.synchronize()
     span = time.perf_counter() - t0
     counts = dict(_lib.launch_counts)
-    t_step = span / N_STEADY
+    t_step = span / n_steady
     peak = torch.cuda.max_memory_allocated()
 
-    steps = N_STEADY + 1
-    log(f"{label}: B={B}, 1 cold + {N_STEADY} steady steps; launches "
+    steps = n_steady + 1
+    log(f"{label}: B={B}, 1 cold + {n_steady} steady steps; launches "
         f"{ {k: v for k, v in counts.items() if v} }, per step "
         f"{ {k: round(v / steps, 3) for k, v in counts.items() if v} }")
     for name, want in per_step(steps).items():
@@ -1404,22 +1466,24 @@ def phase_main_path(dev, card, over=None, per_step=None, label="fused path", mod
         raise AssertionError("non-finite trajectories")
     if dws and res.state.qp_duals is None:
         raise AssertionError(f"{label}: the state carries no duals")
-    log(f"{label}: {N_STEADY} chained steady steps in {span * 1e3:.3f} ms: "
-        f"{t_step * 1e3:.3f} ms/step, {B * N_STEADY / span:.1f} solves/s; the host "
-        f"issued them in {issued * 1e3:.3f} ms ({issued / N_STEADY * 1e3:.3f} ms/step, "
+    log(f"{label}: {n_steady} chained steady steps in {span * 1e3:.3f} ms: "
+        f"{t_step * 1e3:.3f} ms/step, {B * n_steady / span:.1f} solves/s; the host "
+        f"issued them in {issued * 1e3:.3f} ms ({issued / n_steady * 1e3:.3f} ms/step, "
         f"{issued / span:.1%} of the span); peak memory {peak / 2**30:.3f} GiB; card {card}")
 
+    if not synced:
+        return counts, t_step, steady, res.state, inputs
     # secondary: the same steps one at a time, each ended by a synchronize
     times = []
     state = res.state
-    for _ in range(N_STEADY):
+    for _ in range(n_steady):
         t1 = time.perf_counter()
         state = steady(state, inputs).state
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
     ms = np.asarray(times) * 1e3
     log(f"{label}, each step synchronized: median {np.median(ms):.3f} ms (min "
-        f"{ms.min():.3f}, max {ms.max():.3f}, mean {ms.mean():.3f} over {N_STEADY})")
+        f"{ms.min():.3f}, max {ms.max():.3f}, mean {ms.mean():.3f} over {n_steady})")
     return counts, t_step, steady, res.state, inputs
 
 
@@ -1701,49 +1765,55 @@ def phase_composed_numbers(counts, t_step, steady, state, inputs, card):
     return rows
 
 
-def phase_profile(steady, state, inputs, t_step, card, label="fused path"):
+def phase_profile(steady, state, inputs, t_step, card, label="fused path", steps=PROFILE_STEPS):
     """Where the time goes: the device's busy share of chained steady steps,
     and the part of it outside the port's kernels (PyTorch ops).  The
-    kernels' own times come from CUDA events (phases 7 and 8)."""
+    kernels' own times come from CUDA events (phases 7 and 8).  ``steps``
+    profiled steps (phase 19 takes 1: its steps issue ~66,000 launches each,
+    and reading their events back takes the profiler tens of seconds)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
+        for _ in range(steps):
             state = steady(state, inputs).state
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
+        wall = (time.perf_counter() - t0) / steps * 1e3
     busy = other = 0.0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            ms = e.time_range.elapsed_us() / 1e3 / PROFILE_STEPS
+            ms = e.time_range.elapsed_us() / 1e3 / steps
             busy += ms
             if not any(f"{k}_kernel" in e.name for k in KERNELS):
                 other += ms
     if not busy > 0:
         raise AssertionError("the profiler saw no device time")
-    log(f"where the time goes, {label} ({PROFILE_STEPS} profiled chained steady steps, "
+    log(f"where the time goes, {label} ({steps} profiled chained steady steps, "
         f"B={MAIN_B}): device busy {busy:.3f} ms per step, {busy / wall:.1%} of the profiled "
         f"{wall:.3f} ms and {busy / (t_step * 1e3):.1%} of the unprofiled {t_step * 1e3:.3f} "
         f"ms, idle {t_step * 1e3 - busy:.3f} ms; PyTorch ops (all but the port's kernels) "
         f"{other:.3f} ms per step; card {card}")
 
 
-def phase_nmpc(dev, card, ticks=31, model=None, over=DWS, variant="sdf"):
+def phase_nmpc(dev, card, ticks=31, model=None, over=DWS, variant="sdf", N=None):
     """The Nmpc controller at B=1 (att with dual_warm_start, or ``model``
     with ``over``), the trained SDF and a latent (``variant`` 'nosdf':
     BASELINE config 1, no network; 'recfeas': built from the network,
     ``bdist_coeffs`` and ``r_tilde``), RefGen waypoints, each tick fed the
-    predicted next state; every node's diagnostics finite."""
+    predicted next state; every node's diagnostics finite.  ``N``: another
+    horizon (beyond 20 the Riccati backend: kernels 1 and 2 only)."""
     from sdf_nmpc_tpu_torch.controller import Nmpc
     from sdf_nmpc_tpu_torch.nn.weights import load_prod_latents
     from sdf_nmpc_tpu_torch.ops import _lib
     from sdf_nmpc_tpu_torch.ref_gen import RefGen, Waypoint
     from sdf_nmpc_tpu_torch.utils import accuracy
 
+    from sdf_nmpc_tpu_torch.solver import resolve_qp_backend
+
     cfg, ocp, _, _ = accuracy.build_setup(device=dev, solver_over=over, model=model,
-                                          variant=variant)
+                                          variant=variant, N=N)
+    riccati = resolve_qp_backend(cfg, ocp.N) == "riccati"
     if variant == "nosdf" and ocp.sdf is not None:
         raise AssertionError("config 1's OCP carries a network")
     if variant == "recfeas":  # the controller builds the OCP from its arguments
@@ -1785,7 +1855,8 @@ def phase_nmpc(dev, card, ticks=31, model=None, over=DWS, variant="sdf"):
     dws = bool(cfg.solver.get("dual_warm_start", False))
     what = {"nosdf": ", config 1 (no SDF)", "recfeas": ", recursive feasibility + stability"}
     label = (f"Nmpc, {model or 'att'}{what.get(variant, '')}, B=1, "
-             f"{'dual warm start' if dws else 'default settings'}")
+             f"{'dual warm start' if dws else 'default settings'}"
+             f"{f', N={ocp.N} (riccati)' if riccati else ''}")
     if dws:  # one more tick's launches of kernels 5-8, each timed by CUDA events
         from sdf_nmpc_tpu_torch.ops import qp_kernels
 
@@ -1810,10 +1881,14 @@ def phase_nmpc(dev, card, ticks=31, model=None, over=DWS, variant="sdf"):
     lin = "erk4_sens" if model in ERK4_FAMILIES else "lin_y_sens"
     if variant == "nosdf":  # kernels 5 and 6 on the nc = 0 QP, no kernel 2 or 3
         used = [lin, "factor_solve", "solve"]
+    elif riccati:  # the stage-wise QP: no condensing, no QP kernel
+        used = [lin, "sdf_fused_x3"]
     else:
         used = [lin, "sdf_fused_x3", "condense",
                 *(list(COMPOSED_KERNELS) if dws else ["ip_phase"])]
     launched_only(label, counts, used)
+    return {"median_ms": float(np.median(ms)), "p99_ms": float(np.percentile(ms, 99)),
+            "launches": {k: v for k, v in counts.items() if v}}
 
 
 def phase_batched(dev, card):
@@ -2655,6 +2730,362 @@ def phase_perception(dev, card) -> dict:
     return {"per_path": per_path, "report": report}
 
 
+def riccati_per_step(steps):
+    """The Riccati backend (phase 19): kernels 1 and 2 once a step, no
+    condensing and no QP kernel."""
+    return {**{name: 0 for name in KERNELS}, "lin_y_sens": steps, "sdf_fused_x3": steps}
+
+
+def cold_step_held(dev, card, label, cfg, ocp, inputs, used, checks):
+    """One cold step on the card with the launch counts set to 0 just
+    before: only ``used`` launched, every scenario OK and finite, each
+    captured launch of the kernels in ``checks`` (name -> check function)
+    held against its plain version; the first OTHER_SCEN scenarios against
+    the port's f64 CPU step under the CI gate.  Returns (the step's
+    result, the capture, the errors, the f64 reading)."""
+    from sdf_nmpc_tpu_torch.ops import _lib
+    from sdf_nmpc_tpu_torch.solver import init_state, make_rti_step
+
+    B = inputs.x0.shape[0]
+    _lib.reset_launch_counts()
+    with Capture() as cap:
+        res = make_rti_step(ocp, cfg, budget="cold", with_evals=False)(
+            init_state(ocp, inputs.x0), inputs)
+    counts = dict(_lib.launch_counts)
+    launched_only(label, counts, used)
+    n_ok = int((res.status == 0).sum())
+    if n_ok != B or not (torch.isfinite(res.state.X).all() and torch.isfinite(res.u0).all()):
+        raise AssertionError(f"{label}: {n_ok}/{B} scenarios OK, or non-finite outputs")
+    errs = {name: max(check(a) for a in cap.args("sdf" if name.startswith("sdf") else name))
+            for name, check in checks.items()}
+    return res, cap, counts, errs, against_f64_step(label, ocp, cfg, inputs, res, card)
+
+
+def phase_long_horizon(dev, card) -> dict:
+    """Phase 19, long horizons on the Riccati backend (``--long-horizon``
+    runs phases 1, 2 and this one alone): (a) qp_backend riccati at N = 20
+    on the 32 cold starts against the golden (max <= 1e-3, 32/32 OK, the
+    JAX package's own contract), the warm and steady replays beside it; (b)
+    att at N = LONG_N, B = MAIN_B, default settings ('auto' resolves to
+    Riccati): one cold step with kernels 1 and 2 held on every launch and
+    its first OTHER_SCEN scenarios against the f64 CPU step, then the main
+    path as phase 6 and the kernels' numbers on a steady step; (c) props at
+    N = LONG_N, one cold step at B = CHECK_B through kernel 9, held the
+    same way; (d) Nmpc at B = 1 and N = LONG_N; (e) qp_backend condensed
+    forced at N = CROSS_N beside Riccati at N = CROSS_N, B = MAIN_B."""
+    from sdf_nmpc_tpu_torch.ops import _lib, lin_kernels
+    from sdf_nmpc_tpu_torch.solver import resolve_qp_backend
+    from sdf_nmpc_tpu_torch.utils import accuracy as acc
+
+    part, peaks = card_peaks(card.split(",")[0])
+    report, per_path = {}, {}
+    lin_run, x3, _, _ = fused_runs().values()
+    x3_rate = {"sdf_fused_x3": (3.0, TF32_PEAKS[part])}
+    t0 = time.perf_counter()
+
+    def took(what):
+        log(f"phase 19 ({what}) done at {time.perf_counter() - t0:.1f} s")
+
+    # (a) the contract at N = 20
+    _lib.reset_launch_counts()
+    cold = acc.check_accuracy(device=dev, solver_over=RIC)
+    launched_only("riccati N=20, accuracy cold", dict(_lib.launch_counts),
+                  ["lin_y_sens", "sdf_fused_x3"])
+    warm = acc.check_warm_accuracy(device=dev, budget="warm", solver_over=RIC)
+    steady = acc.check_warm_accuracy(device=dev, budget="steady", solver_over=RIC)
+    g = acc.replay_gates(warm, steady)
+    ok = cold["n_ok"] == cold["n_scen"] and cold["u0_max_err"] <= acc.CONTRACT_MAX
+    log(f"accuracy riccati N=20 cold: u0 mean {cold['u0_mean_err']:.3e} max "
+        f"{cold['u0_max_err']:.3e}, {cold['n_ok']}/{cold['n_scen']} status OK, contract max <= "
+        f"{acc.CONTRACT_MAX}: {'pass' if ok else 'FAIL'}; card {card}")
+    for name, mean, mx, n_ok, n in (("warm", g["warm_mean"], g["warm_max"], warm["n_ok"],
+                                     warm["n_solves"]),
+                                    ("steady", g["steady_mean"], g["steady_max"],
+                                     steady["n_ok"], steady["n_solves"])):
+        log(f"accuracy riccati N=20 {name} (not gated): u0 mean {mean:.3e} max {mx:.3e}, "
+            f"{n_ok}/{n} status OK, CI gate {'pass' if acc.ci_gate_ok(mean, mx) else 'miss'}")
+    report["riccati N=20"] = {"u0_max_err": cold["u0_max_err"], "u0_mean_err":
+                              cold["u0_mean_err"], "u0_warm_max_err": g["warm_max"],
+                              "u0_steady_max_err": g["steady_max"]}
+    if not ok:
+        raise AssertionError("accuracy riccati N=20: the contract failed")
+    took("a")
+
+    # (b) att at N = LONG_N: the cold step held, then the main path
+    cfg, ocp, layout, _ = acc.build_setup(device=dev, N=LONG_N)
+    if resolve_qp_backend(cfg, ocp.N) != "riccati":
+        raise AssertionError(f"N={ocp.N}: qp_backend auto did not resolve to riccati")
+    label = f"att riccati N={LONG_N}"
+    inputs = bench_inputs(ocp, cfg, layout, MAIN_B, SEED, dev)
+    log(f"{label} (T = {cfg.mpc.T:g} s, auto -> riccati): one cold step, B={MAIN_B}")
+    *_, errs, report[f"{label}, cold vs f64"] = cold_step_held(
+        dev, card, label, cfg, ocp, inputs, ["lin_y_sens", "sdf_fused_x3"],
+        {"lin_y_sens": check_lin, "sdf_fused_x3": lambda a: check_sdf(a, "sdf_fused_x3")})
+    del inputs
+    counts, t_step, steady_fn, state, inputs = phase_main_path(
+        dev, card, per_step=riccati_per_step, label=label, N=LONG_N, synced=False)
+    phase_profile(steady_fn, state, inputs, t_step, card, label=label, steps=1)
+    with Capture() as cap:
+        steady_fn(state, inputs)
+    log(f"kernel numbers, {label}: inputs of one steady step at B={MAIN_B}")
+    calls = {"lin_y_sens": cap.args("lin_y_sens"), "sdf_fused_x3": cap.args("sdf")}
+    for row in kernel_rows({"lin_y_sens": lin_run, "sdf_fused_x3": x3}, calls, counts, errs,
+                           peaks, part, x3_rate):
+        row.update(B=MAIN_B, N=LONG_N, t_step_ms=t_step * 1e3,
+                   points=int(calls["lin_y_sens"][0][2].shape[0]))
+        per_path.setdefault(row["name"], {})[f"{label}, steady, B={MAIN_B}"] = row
+    report[f"{label} main path"] = {"ms_per_step": t_step * 1e3,
+                                    "solves_per_s": MAIN_B / t_step}
+    del cap, steady_fn, state, inputs
+    took("b")
+
+    # (c) props at N = LONG_N through kernel 9
+    cfg, ocp, layout, lat = acc.build_setup(device=dev, model="props", N=LONG_N)
+    label = f"props riccati N={LONG_N}"
+    inputs = tiled_inputs(ocp, cfg, layout, lat, CHECK_B, SEED, dev)
+    log(f"{label}: one cold step, B={CHECK_B} jittered accuracy scenarios")
+    _, cap, counts, errs, report[f"{label}, cold vs f64"] = cold_step_held(
+        dev, card, label, cfg, ocp, inputs, ["erk4_sens", "sdf_fused_x3"],
+        {"erk4_sens": check_erk4, "sdf_fused_x3": lambda a: check_sdf(a, "sdf_fused_x3")})
+    erk4_run = (lin_kernels.erk4_sens, lambda a: lin_kernels.erk4_sens_plain(*a), erk4_cost,
+                None)
+    for row in kernel_rows({"erk4_sens": erk4_run, "sdf_fused_x3": x3},
+                           {"erk4_sens": cap.args("erk4_sens"), "sdf_fused_x3": cap.args("sdf")},
+                           counts, errs, peaks, part, x3_rate):
+        row.update(B=CHECK_B, N=LONG_N)
+        per_path.setdefault(row["name"], {})[f"{label}, cold, B={CHECK_B}"] = row
+    del cap, inputs
+    took("c")
+
+    # (d) the controller at B = 1
+    report[f"Nmpc N={LONG_N}"] = phase_nmpc(dev, card, ticks=NMPC_TICKS_LONG, over=None,
+                                            N=LONG_N)
+    took("d")
+
+    # (e) the crossover at N = CROSS_N
+    for name, over, per_step in (("condensed (forced)", {"qp_backend": "condensed"},
+                                  fused_per_step), ("riccati (auto)", None, riccati_per_step)):
+        label = f"att N={CROSS_N}, {name}"
+        try:
+            counts, t_step, steady_fn, state, inputs = phase_main_path(
+                dev, card, over=over, per_step=per_step, label=label, N=CROSS_N,
+                n_steady=CROSS_STEADY, synced=False)
+        except (ValueError, NotImplementedError) as e:  # a kernel refusing the shapes
+            log(f"{label}: refused: {e}")
+            report[label] = {"refused": str(e)}
+            continue
+        report[label] = {"ms_per_step": t_step * 1e3, "solves_per_s": MAIN_B / t_step}
+        del steady_fn, state, inputs
+    took("e")
+    log(json.dumps({"long_horizon": report}))
+    return {"per_path": per_path, "report": report}
+
+
+def sphere_setup(dev, dtype=torch.float32):
+    """tests/test_sim.py's avoid setup on ``dev``: (cfg, ocp, scene, the
+    world-frame clearance p -> sdf), the scene oracle as the SDF row."""
+    from sdf_nmpc_tpu_torch.config import default_config
+    from sdf_nmpc_tpu_torch.ocp import build_ocp
+    from sdf_nmpc_tpu_torch.sim import Scene, make_scene_sdf_fn, scene_sdf
+
+    cfg = default_config().replace(nn=dict(size_latent=8),
+                                   solver=dict(qp_iters=10, dtype=str(dtype).split(".")[-1]))
+    scene = Scene.make(spheres=[SPHERE], device=dev).to(dtype)
+    ocp = build_ocp(cfg, sdf=make_scene_sdf_fn(scene, max_df=1.0), sdf_max_df=1.0, device=dev)
+    return cfg, ocp, scene, lambda p: scene_sdf(scene, p)
+
+
+def sphere_inputs(cfg, ocp, x0s, flag, dtype=torch.float32):
+    """tests/test_sdf_nmpc.py's build_inputs per start (x0s (B, nx)): the
+    camera at the origin, goal (2, 0, 0) with the unconstrained weights."""
+    from sdf_nmpc_tpu_torch.ref_gen import Ref
+    from sdf_nmpc_tpu_torch.solver import SolveInputs
+
+    B, N = x0s.shape[0], ocp.N
+    p = np.zeros((B, N + 1, ocp.layout.np_total))
+    ocp.layout.set_flag(p, flag)
+    ocp.layout.set_camera(p, np.zeros(3), np.eye(3))
+    ocp.layout.set_q_d(p, [1, 0, 0, 0])
+    ref = Ref(cfg).use_constrained_weights(False)
+    ref.p = np.array([2.0, 0.0, 0.0])
+    yr, W = ocp.pack_ref(ref)
+    T = lambda a: torch.as_tensor(a, dtype=dtype, device=ocp.device)
+    return SolveInputs(x0=T(x0s), yref=T(np.tile(yr, (B, N, 1))), W=T(np.tile(W, (B, N, 1))),
+                       yrefN=T(np.tile(yr[:ocp.nyN], (B, 1))),
+                       WN=T(np.tile(W[:ocp.nyN], (B, 1))), p=T(p))
+
+
+def hover(B):
+    x = np.zeros((B, 10))
+    x[:, 3] = 1.0
+    return x
+
+
+def timed_rollout(rollout, *args):
+    """(result, ms per tick's wall time over the whole rollout, launches)."""
+    from sdf_nmpc_tpu_torch.ops import _lib
+
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = rollout(*args)
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3 / res.us.shape[1], dict(_lib.launch_counts)
+
+
+def phase_closed_loop(dev, card) -> dict:
+    """Phase 20, the closed loop (``--closed-loop`` runs phases 1, 2 and
+    this one alone): tests/test_sim.py's sphere scene in f32 on the card,
+    make_closed_loop at B = 1 over LOOP_TICKS ticks held by that file's
+    outcome rules (every status OK, min clearance > 0, tracking error <
+    0.35, lateral excursion > 0.15), the flag off colliding, a Monte Carlo
+    of MC_B starts over MC_TICKS ticks (success 1.0, collision 0); then
+    perception in the loop at full width: config 3's 8 scenes, each chunk
+    rendered at 270 x 480 from the current pose and encoded by the trained
+    encoder, with the trained NeuralDF, PERC_CHUNKS x PERC_TICKS ticks."""
+    from sdf_nmpc_tpu_torch.math import quat2rot
+    from sdf_nmpc_tpu_torch.sim import (
+        make_closed_loop,
+        make_closed_loop_perception,
+        render_range_image,
+        scene_sdf,
+        summarize,
+    )
+    from sdf_nmpc_tpu_torch.solver import init_state, make_rti_step
+    from sdf_nmpc_tpu_torch.utils import accuracy as acc
+
+    report, per_path = {}, {}
+    loop_kernels = ["lin_y_sens", "condense", "ip_phase"]  # the oracle row: no kernel 2
+    cfg, ocp, scene, world = sphere_setup(dev)
+    rollout = make_closed_loop(ocp, cfg, n_ticks=LOOP_TICKS, scene_sdf_fn=world)
+    for flag in (1.0, 0.0):
+        label = f"closed loop, sphere scene, flag {flag:g}, B=1, {LOOP_TICKS} ticks"
+        res, ms, counts = timed_rollout(rollout, torch.as_tensor(hover(1), device=dev),
+                                        sphere_inputs(cfg, ocp, hover(1), flag))
+        launched_only(label, counts, loop_kernels)
+        r = {"min_clearance": float(res.min_clearance[0]),
+             "tracking_error": float(res.tracking_error[0]),
+             "lateral_max": float(res.xs[0, :, 1].abs().max()),
+             "n_fail": int((res.statuses != 0).sum()), "ms_per_tick": ms}
+        log(f"{label}: {r}; card {card}")
+        report[label] = r
+        ok = (r["n_fail"] == 0 and r["min_clearance"] > 0 and r["tracking_error"] < 0.35
+              and r["lateral_max"] > 0.15) if flag else r["min_clearance"] < 0
+        if not (ok and torch.isfinite(res.xs).all()):
+            raise AssertionError(f"{label}: the outcome rules of tests/test_sim.py failed")
+
+    x0s = hover(MC_B)
+    x0s[:, 1] += np.random.default_rng(SEED).uniform(-0.3, 0.3, MC_B)
+    inputs = sphere_inputs(cfg, ocp, x0s, 1.0)
+    label = f"closed loop Monte Carlo, B={MC_B}, {MC_TICKS} ticks"
+    with Capture() as cap:  # the loop's kernels held on one tick's launches
+        make_rti_step(ocp, cfg, with_evals=False)(init_state(ocp, inputs.x0), inputs)
+    check_all(cap, "closed loop tick")
+    res, ms, counts = timed_rollout(make_closed_loop(ocp, cfg, n_ticks=MC_TICKS,
+                                                     scene_sdf_fn=world), inputs.x0, inputs)
+    launched_only(label, counts, loop_kernels)
+    stats = summarize(res)
+    log(f"{label}: {stats}, {ms:.3f} ms per tick; card {card}")
+    report[label] = {**stats, "ms_per_tick": ms}
+    for name in loop_kernels:
+        per_path.setdefault(name, {})[label] = {"launches": counts[name], "ms_per_tick": ms}
+    if stats["success_rate"] != 1.0 or stats["collision_rate"] != 0.0:
+        raise AssertionError(f"{label}: success {stats['success_rate']}, collision "
+                             f"{stats['collision_rate']}")
+    del res, inputs, cap
+
+    # perception in the loop: render -> encode -> solve -> plant
+    cfg, ocp, layout, _ = acc.build_setup(device=dev)
+    n = acc.CONFIG3_SCEN
+    enc = acc.config3_encoder(cfg, torch.float32, dev)
+    scenes = acc._config3_scenes(n, dev)
+    inputs, _ = acc.config3_inputs(cfg, ocp, layout, n, torch.float32, dev)
+    H, W = (int(v) for v in cfg.sensor.shape_imgs[-2:])
+    split = {"render": 0.0, "encode": 0.0}
+
+    def observe(x, sc):
+        """The camera at the body, its attitude; the trained encoder's latent."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        R = quat2rot(x[:, 3:7] / torch.linalg.vector_norm(x[:, 3:7], dim=-1, keepdim=True))
+        imgs = torch.stack([render_range_image(
+            type(sc)(*[a[b] for a in sc]), x[b, :3], R[b], H, W, float(cfg.sensor.hfov),
+            float(cfg.sensor.vfov), float(cfg.sensor.dmax)) for b in range(x.shape[0])])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            latent = enc(imgs[:, None])
+        torch.cuda.synchronize()
+        split["render"] += t1 - t0
+        split["encode"] += time.perf_counter() - t1
+        return x[:, :3], R, latent
+
+    label = f"perception in the loop, config 3's {n} scenes, {PERC_CHUNKS} x {PERC_TICKS} ticks"
+    res, ms, counts = timed_rollout(make_closed_loop_perception(
+        ocp, cfg, n_chunks=PERC_CHUNKS, ticks_per_chunk=PERC_TICKS, observe_fn=observe,
+        scene_sdf_fn=lambda p, sc: scene_sdf(sc, p)), inputs.x0, inputs, scenes)
+    launched_only(label, counts, loop_kernels + ["sdf_fused_x3"])
+    stats = summarize(res)
+    chunk = ms * PERC_TICKS
+    render, encode = (split[k] * 1e3 / PERC_CHUNKS for k in ("render", "encode"))
+    clear = [round(float(c), 4) for c in res.min_clearance]
+    log(f"{label}: {stats}; min clearance per scene {clear}; per chunk {chunk:.3f} ms: render "
+        f"{render:.3f}, encode {encode:.3f}, solve {chunk - render - encode:.3f} ms; card {card}")
+    report[label] = {**stats, "min_clearance": clear, "ms_per_chunk": chunk,
+                     "render_ms": render, "encode_ms": encode,
+                     "solve_ms": chunk - render - encode}
+    for name in loop_kernels + ["sdf_fused_x3"]:
+        per_path.setdefault(name, {})[label] = {"launches": counts[name], "ms_per_tick": ms}
+    if int((res.statuses != 0).sum()) or not torch.isfinite(res.xs).all():
+        raise AssertionError(f"{label}: statuses {res.statuses.unique().tolist()}, or "
+                             "non-finite states")
+    log(json.dumps({"closed_loop": report}))
+    return {"per_path": per_path, "report": report}
+
+
+def phase_solver_routes(dev, card) -> dict:
+    """Phase 21, the solver routes (``--solver-routes`` runs phases 1, 2
+    and this one alone): one cold att step at B = CHECK_B on the 32
+    accuracy scenarios repeated under each of ROUTE_CHECKS, its u0 against
+    the golden and its launches, each route launching what its JAX route
+    implies; the exact routes held to the CI gate, qp_data_bf16 (the JAX
+    package read 7.7e-3, docs/performance.md:705-721) finite and OK."""
+    from sdf_nmpc_tpu_torch.ops import _lib
+    from sdf_nmpc_tpu_torch.solver import init_state, make_rti_step
+    from sdf_nmpc_tpu_torch.utils import accuracy as acc
+
+    report = {}
+    ref = np.load(acc.REF_NPZ)["u0"]
+    reps = CHECK_B // acc.N_SCEN
+    for label, (over, used, gated) in ROUTE_CHECKS.items():
+        cfg, ocp, layout, lat = acc.build_setup(device=dev, solver_over=over)
+        inputs = acc.scenario_inputs(ocp, acc.build_scenarios(cfg, ocp, layout, lat),
+                                     torch.float32, dev, reps=reps)
+        _lib.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = make_rti_step(ocp, cfg, budget="cold", with_evals=False)(
+            init_state(ocp, inputs.x0), inputs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched_only(f"route {label}", dict(_lib.launch_counts), list(used))
+        err = np.abs(res.u0.double().cpu().numpy() - np.repeat(ref, reps, 0)).max(1)
+        n_ok = int((res.status == 0).sum())
+        ok = n_ok == CHECK_B and np.isfinite(err).all()
+        gate = acc.ci_gate_ok(err.mean(), err.max())
+        log(f"route {label}: one cold step, B={CHECK_B}, {ms:.1f} ms; u0 vs golden mean "
+            f"{err.mean():.3e} max {err.max():.3e}, {n_ok}/{CHECK_B} status OK, CI gate "
+            f"{'pass' if gate else 'miss'}{'' if gated else ' (not gated)'}, strict <= "
+            f"{acc.CONTRACT_MAX}: {'pass' if err.max() <= acc.CONTRACT_MAX else 'miss'}; card "
+            f"{card}")
+        report[label] = {"u0_max_err": float(err.max()), "u0_mean_err": float(err.mean()),
+                         "ms": ms, "launches": {k: v for k, v in _lib.launch_counts.items() if v}}
+        if not ok or (gated and not gate):
+            raise AssertionError(f"route {label}: {n_ok}/{CHECK_B} OK, u0 max {err.max()}")
+    log(json.dumps({"solver_routes": report}))
+    return {"report": report}
+
+
 # source -> (its C functions, the kernels timed, the models whose steady
 # step gives the launches) for --ip-builds, --sdf-builds (kernel 2's three
 # sources), --qp-builds, --condense-builds, --lin-builds and --erk4-builds; a
@@ -2908,6 +3339,13 @@ def main(argv=None) -> int:
                     help="run only the formulation extras (phase 17), then stop")
     ap.add_argument("--perception", action="store_true",
                     help="run only perception, BASELINE config 3 (phase 18), then stop")
+    ap.add_argument("--long-horizon", action="store_true",
+                    help="run only the long horizons on the Riccati backend (phase 19), then "
+                         "stop")
+    ap.add_argument("--closed-loop", action="store_true",
+                    help="run only the closed loop (phase 20), then stop")
+    ap.add_argument("--solver-routes", action="store_true",
+                    help="run only the solver routes (phase 21), then stop")
     args = ap.parse_args(argv)
     card = phase_card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2930,6 +3368,12 @@ def main(argv=None) -> int:
     if args.perception:
         phase_perception(dev, card)
         return 0
+    for flag, phase in ((args.long_horizon, phase_long_horizon),
+                        (args.closed_loop, phase_closed_loop),
+                        (args.solver_routes, phase_solver_routes)):
+        if flag:
+            phase(dev, card)
+            return 0
     if args.composed:
         _, t_step, steady, state, inputs = phase_main_path(
             dev, card, over=DWS, per_step=composed_per_step, label="composed path")
@@ -2964,13 +3408,17 @@ def main(argv=None) -> int:
     log(json.dumps({"config_1": config1, "other_rows": other}))
     extras = phase_formulation(dev, card)
     perception = phase_perception(dev, card)
+    long_horizon = phase_long_horizon(dev, card)
+    closed_loop = phase_closed_loop(dev, card)
+    phase_solver_routes(dev, card)
     for i, row in enumerate(rows):  # kernels 1 and 3: att's numbers, every model's beside
         if row["name"] in ("lin_y_sens", "condense"):
             rows[i] = kernel_row_per_model({"att": row, **per_kernel[row["name"]]}, "att")
     # kernel 9: att's (under sdf_cost) at top level, all six families beside
     rows.append(kernel_row_per_model({**extras["erk4_sens"], **per_kernel["erk4_sens"]}, "att"))
     for row in rows:  # the formulation extras' and config 3's readings of kernels 1-8
-        for per_path in (extras["per_path"], perception["per_path"]):
+        for per_path in (extras["per_path"], perception["per_path"], long_horizon["per_path"],
+                         closed_loop["per_path"]):
             if row["name"] in per_path:
                 row.setdefault("per_path", {}).update(per_path[row["name"]])
     print(json.dumps({"kernels": rows}), flush=True)

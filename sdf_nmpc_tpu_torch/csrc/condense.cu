@@ -31,6 +31,15 @@
 // (16-byte copies where a slab is 16-byte aligned), so one barrier per stage
 // remains and no load latency sits on the critical path.
 //
+// Non-finite inputs.  The skip is exact only while E's zero columns are
+// zeros and the rows multiplying them are finite: the JAX kernel's products
+// give 0 * NaN = NaN there.  After the stage's barrier each thread scans its
+// float4 chunks of the stage's A, Jyx and Jhx rows, and a second barrier
+// votes (__syncthreads_or); from the first stage with a non-finite entry on,
+// every column takes the products, so NaN reaches the columns the JAX
+// kernel's products reach.  On finite inputs the flag stays down and every
+// output keeps its bits.
+//
 // Instances: nx = 10 and nx = 13 (the quad families) with compile-time
 // loops, and any nx <= NX_MAX with the runtime nx as the loop bound.
 
@@ -93,6 +102,24 @@ __device__ __forceinline__ void copy_flat(float* dst, const float* src, int n, i
     i0 = n / 4 * 4;
   }
   for (int i = i0 + t; i < n; i += nt) acp::copy4(dst + i, src + i);
+}
+
+// Whether the stage in S holds a non-finite entry in A, Jyx or Jhx (the
+// matrices that multiply E's zero columns): this thread's float4 chunks of
+// their rows (contiguous, stride ld), the pad lanes past nx left out.  Read
+// after a barrier, so every thread's copies are in.
+template <int NXT, bool EXACT>
+__device__ __forceinline__ bool nonfinite_scan(const CondenseArgs& a, const Layout& L,
+                                               const float* S, int t, int nt) {
+  const int nx = EXACT ? NXT : a.nx, q4 = L.ld / 4;
+  bool bad = false;
+  for (int c = t; c < (nx + a.ny + a.nh) * q4; c += nt) {
+    const int j = 4 * (c % q4);
+    const float4 v = *reinterpret_cast<const float4*>(S + L.A + 4 * c);
+    bad |= (!isfinite(v.x)) | (j + 1 < nx && !isfinite(v.y)) | (j + 2 < nx && !isfinite(v.z)) |
+           (j + 3 < nx && !isfinite(v.w));
+  }
+  return bad;
 }
 
 __device__ __forceinline__ void load_stage(const CondenseArgs& a, const Layout& L, size_t bk,
@@ -168,13 +195,14 @@ __global__ void __launch_bounds__(MAX_THREADS) condense_kernel(CondenseArgs a) {
   load_stage(a, L, size_t(b) * N, smem, t, nt);
   acp::wait_all();
   __syncthreads();
+  bool dense = __syncthreads_or(nonfinite_scan<NXT, EXACT>(a, L, smem, t, nt));
 
   for (int k = 0; k < N; ++k) {
     const size_t bk = size_t(b) * N + k;
     const float* S = smem + (k & 1) * L.size;
     if (k + 1 < N) load_stage(a, L, bk + 1, smem + ((k + 1) & 1) * L.size, t, nt);
     const int cb = c - k * nu;  // column c's place in block k
-    const bool live = is_e || (col && cb < 0);  // a column here may be nonzero
+    const bool live = is_e || (col && (cb < 0 || dense));  // a column here may be nonzero
     // column m lies in block k: add B_k / Jyu_k / Jhu_k's column cb + m
     bool blk[CPT];
 #pragma unroll
@@ -258,6 +286,10 @@ __global__ void __launch_bounds__(MAX_THREADS) condense_kernel(CondenseArgs a) {
 
     acp::wait_all();  // stage k+1 landed (this thread's copies) ...
     __syncthreads();  // ... everyone's, and stage k's buffer is free
+    if (k + 1 < N)
+      dense = __syncthreads_or(
+                  nonfinite_scan<NXT, EXACT>(a, L, smem + ((k + 1) & 1) * L.size, t, nt)) ||
+              dense;
   }
   if (col) {
     float v[CPT];

@@ -129,6 +129,25 @@ class OcpSpec:
         return yr, W
 
 
+class SdfFn(torch.nn.Module):
+    """A plain SDF callable ``fn(pos (..., 3), latent (..., L)) -> (...)``
+    as the network module the OCP and the step take (the JAX package's
+    ``build_ocp(cfg, sdf_fn=...)`` takes any such function, e.g.
+    ``sim.make_scene_sdf_fn``'s scene oracle).  It is not a NeuralDF
+    (``res`` 'callable'), so the step takes the autodiff row, no kernel 2.
+    Tensors the callable holds keep their dtype: an f64 step on an f32
+    scene promotes, as the JAX package does."""
+
+    res = "callable"
+
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, inp):
+        return self.fn(inp[..., :3], inp[..., 3:])[..., None]
+
+
 def autodiff_value_grad(net):
     """value_grad(pos (K, 3), latent (K, L)) -> (df (K,), d df / d pos (K, 3))
     of the NeuralDF ``net`` by ``torch.func``: the vmapped value and gradient
@@ -198,9 +217,12 @@ def build_ocp(cfg, sdf: torch.nn.Module = None, sdf_max_df: float = 1.0,
               extra_eval: Sequence = (), device="cuda") -> OcpSpec:
     """Assemble the OCP.
 
-    sdf          -- the NeuralDF module (its parameters on ``device``); the
-                    camera-frame position of the body feeds it.  Required with
-                    flags.enable_sdf, else unused and may be None.
+    sdf          -- the NeuralDF module (its parameters on ``device``), or a
+                    callable (pos (..., 3), latent (..., L)) -> (...,) such as
+                    ``sim.make_scene_sdf_fn``'s oracle (wrapped in ``SdfFn``:
+                    the autodiff row, no kernel 2); the camera-frame position
+                    of the body feeds it.  Required with flags.enable_sdf,
+                    else unused and may be None.
     sdf_max_df   -- the network's truncation distance.
     bdist_coeffs -- 3-variate polynomial coefficients of the braking distance
                     (required with flags.recursive_feasibility).
@@ -264,6 +286,8 @@ def build_ocp(cfg, sdf: torch.nn.Module = None, sdf_max_df: float = 1.0,
     if fl.enable_sdf:
         if sdf is None:
             raise ValueError("enable_sdf requires an sdf module")
+        if not isinstance(sdf, torch.nn.Module):
+            sdf = SdfFn(sdf)
         if any(q.device != dev for q in sdf.parameters()):
             raise ValueError(f"the sdf module's parameters are not on {dev}")
 

@@ -106,47 +106,74 @@ def ip_init(H, g, C, c0, lh, uh, z1, z2, lb, ub, mu0, box_margin, consts, warm=N
     return data, tuple(t.contiguous() for t in state)
 
 
-def _newton(A, rhs, Cs, d_s, kernels):
+def _newton(A, rhs, Cs, d_s, route="plain", fdt=None):
     """(x_aff, solve_more) for the Newton matrix M = A + Cs' diag(d_s) Cs:
     the predictor rhs (B, nz) solved and Woodbury-corrected, and a function
     that solves more right-hand sides (B, nz) the same way.
 
-    kernels=False: plain torch, as solver/qp.py with chol_impl='xla' (kernel
-    4's plain version).  kernels=True: through the wrappers of kernels 5-8,
-    as chol_impl='pallas' (:425-488): kernels 7 and 8 when k % 8 == 0, else
-    kernels 5 and 6 with the Cs rows stacked under the rhs and the k x k T
-    factored and solved in torch."""
+    ``route`` (solver/qp.py's ``chol_impl``, :425-488): 'plain', torch's
+    Cholesky and solves, as chol_impl='xla' (kernel 4's plain version);
+    'kernels', the wrappers of kernels 5-8, as chol_impl='pallas': kernels 7
+    and 8 when k % 8 == 0, else kernels 5 and 6 with the Cs rows stacked
+    under the rhs and the k x k T factored and solved in torch; 'custom',
+    the blocked factorization of ``solver.linalg``, as chol_impl='custom'.
+    ``fdt``: the dtype the factorizations and solves run in (the data's
+    under a compute_dtype, :205-208); the rest stays in A's dtype."""
+    dtype = A.dtype
+    fdt = fdt or dtype
+    f = lambda t: t.to(fdt).contiguous()
+    back = lambda t: t.to(dtype)
     k = 0 if Cs is None else Cs.shape[1]
     if k:
         d_s_inv = torch.clamp(1.0 / torch.clamp(d_s, min=1e-30), max=1e30)
-    if kernels and k and k % 8 == 0:
-        X1, (L, Xs, Lt) = qp_kernels.stiff_factor_solve(
-            A, rhs[:, None].contiguous(), Cs, d_s_inv.contiguous())
-        return X1[:, 0], lambda r: qp_kernels.stiff_resolve(
-            L, Xs, Lt, Cs, r[:, None].contiguous())[:, 0]
-    if kernels:
-        factor_solve, solve = qp_kernels.factor_solve, qp_kernels.solve
-    else:
-        factor_solve, solve = qp_kernels.factor_solve_plain, qp_kernels.solve_plain
+    if route == "kernels" and k and k % 8 == 0:
+        Cs_f = f(Cs)
+        X1, (L, Xs, Lt) = qp_kernels.stiff_factor_solve(f(A), f(rhs[:, None]), Cs_f,
+                                                        f(d_s_inv))
+        return back(X1[:, 0]), lambda r: back(qp_kernels.stiff_resolve(
+            L, Xs, Lt, Cs_f, f(r[:, None]))[:, 0])
     RHS1 = torch.cat([rhs[:, None], Cs], 1) if k else rhs[:, None]
-    X1, L = factor_solve(A, RHS1.contiguous())
-    more = lambda r: solve(L, r[:, None].contiguous())[:, 0]
+    if route == "custom":
+        from ..solver import linalg
+
+        fac, n = linalg.spd_factor_batched(f(A))
+
+        def solve_rows(R):  # a single row by the vector sweep, as the JAX route
+            if R.shape[1] == 1:
+                return back(linalg.spd_factor_solve(fac, n, f(R[:, 0]))[:, None])
+            return back(linalg.spd_factor_solve_mrhs(fac, n, f(R).transpose(-1, -2))
+                        .transpose(-1, -2))
+
+        X1 = solve_rows(RHS1)
+        more = lambda r: solve_rows(r[:, None])[:, 0]
+    else:
+        if route == "kernels":
+            factor_solve, solve = qp_kernels.factor_solve, qp_kernels.solve
+        elif route == "plain":
+            factor_solve, solve = qp_kernels.factor_solve_plain, qp_kernels.solve_plain
+        else:
+            raise ValueError(f"unknown Newton route {route!r}")
+        X1, L = factor_solve(f(A), f(RHS1))
+        X1 = back(X1)
+        more = lambda r: back(solve(L, f(r[:, None]))[:, 0])
     if not k:
         return X1[:, 0], more
     Xs = X1[:, 1:]
-    Lt = qp_kernels.chol_plain(qp_kernels.woodbury_matrix(Cs, Xs, d_s_inv))
+    T = qp_kernels.woodbury_matrix(Cs, Xs, d_s_inv, eps=torch.finfo(fdt).eps)
+    Lt = qp_kernels.chol_plain(f(T))
 
     def wood(x):
-        return x - _mtv(Xs, torch.cholesky_solve(_mv(Cs, x)[..., None], Lt)[..., 0])
+        return x - _mtv(Xs, back(torch.cholesky_solve(f(_mv(Cs, x)[..., None]), Lt)[..., 0]))
 
     return wood(X1[:, 0]), lambda r: wood(more(r))
 
 
-def ip_iteration(data, state, k_s, it_idx, in_tail, c, kernels=False, ir_steps=0):
+def ip_iteration(data, state, k_s, it_idx, in_tail, c, route="plain", ir_steps=0, fdt=None):
     """One Mehrotra predictor-corrector iteration of solver/qp.py's body,
     batch-first; every scalar of the JAX body is a (B,) tensor here.  The
-    Newton solves go through ``_newton`` (``kernels`` selects the route);
-    ``ir_steps`` refinement sweeps follow each solve (:490-503)."""
+    Newton solves go through ``_newton`` (``route`` and ``fdt``, the
+    factorization's dtype, as there); ``ir_steps`` refinement sweeps follow
+    each solve (:490-503)."""
     H, C, g, c0, lh, uh, z1, z2, lb, ub = data
     dz, sl, su, lam_l, lam_u, gam_l, gam_u, nu_l, nu_u, mu, best_dz, best_m, dzs = state
     dtype = dz.dtype
@@ -205,7 +232,7 @@ def ip_iteration(data, state, k_s, it_idx, in_tail, c, kernels=False, ir_steps=0
     else:  # nc = 0: solver/qp.py:375-378
         A = H + torch.diag_embed(rb)
     diagA = torch.diagonal(A, dim1=-2, dim2=-1)
-    A = A + torch.diag_embed(10 * eps * (diagA.abs() + 1.0))
+    A = A + torch.diag_embed(10 * torch.finfo(fdt or dtype).eps * (diagA.abs() + 1.0))
 
     def coeffs(m_tl, m_tu, m_sl, m_su):
         a_l = m_tl / tl - lam_l
@@ -247,7 +274,7 @@ def ip_iteration(data, state, k_s, it_idx, in_tail, c, kernels=False, ir_steps=0
     rhs_aff = rhs_of(*aff_t)
 
     # one factor + multi-solve for [rhs_aff; Cs]; the corrector reuses it
-    x_aff, solve_more = _newton(A, rhs_aff, Cs, d_s, kernels)
+    x_aff, solve_more = _newton(A, rhs_aff, Cs, d_s, route, fdt)
 
     def finish(x, rhs):
         for _ in range(ir_steps):

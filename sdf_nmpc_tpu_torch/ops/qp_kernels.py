@@ -45,10 +45,11 @@ def _rows_solve(L, R):
     return torch.cholesky_solve(R.transpose(-1, -2), L).transpose(-1, -2)
 
 
-def woodbury_matrix(Cs, Xs, ds_inv):
+def woodbury_matrix(Cs, Xs, ds_inv, eps=None):
     """T = Cs Xs' + diag(ds_inv) with the relative jitter 10 eps (|T_ii| +
-    1e-30) of solver/qp.py (:479-481) and of the stiff kernel (:328-330)."""
-    eps = torch.finfo(Cs.dtype).eps
+    1e-30) of solver/qp.py (:479-481) and of the stiff kernel (:328-330);
+    eps is the factorization dtype's (default: Cs's)."""
+    eps = torch.finfo(Cs.dtype).eps if eps is None else eps
     T = Cs @ Xs.transpose(-1, -2) + torch.diag_embed(ds_inv)
     diag = torch.diagonal(T, dim1=-2, dim2=-1)
     return T + torch.diag_embed(10 * eps * (diag.abs() + 1e-30))

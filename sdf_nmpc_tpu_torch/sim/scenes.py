@@ -89,9 +89,11 @@ def scene_sdf(scene: Scene, p):
     return d
 
 
-def make_scene_sdf_fn(scene: Scene, max_df: float = 1.0):
-    """(pos in the camera frame, latent) -> truncated SDF: an oracle standing
-    in for the NeuralDF (the latent is ignored)."""
+def make_scene_sdf_fn(scene: Scene, max_df: float = 1.0, robot_frame=True):
+    """(pos in the camera frame, latent) -> truncated SDF, usable as
+    build_ocp's ``sdf``: an oracle standing in for the NeuralDF (the latent
+    is ignored).  ``robot_frame`` is taken and not read, as in the JAX
+    package (sim/scenes.py:69)."""
 
     def fn(pos, latent):
         return torch.clamp(scene_sdf(scene, pos), max=max_df)

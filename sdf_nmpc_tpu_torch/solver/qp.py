@@ -22,9 +22,12 @@ shapes before anything runs, as solver/qp.py:144-199 chooses:
   time, and its Newton solves go through kernels 5-8
   (``ops.qp_kernels``): kernels 7 and 8 for a stiff split of a multiple of
   8 rows, else kernels 5 and 6.  Warm duals, refinement sweeps, f64, a
-  stiff split the fused kernel does not take and a QP without constraint
-  rows (nc = 0: no stiff rows, kernels 5 and 6 on H + diag(rb)) go this
-  way.
+  ``compute_dtype``, a stiff split the fused kernel does not take and a QP
+  without constraint rows (nc = 0: no stiff rows, kernels 5 and 6 on H +
+  diag(rb)) go this way;
+* the composed path on other linear algebra, as the JAX package's routes:
+  ``chol_impl`` 'xla' (torch.linalg's Cholesky and solves, no kernel) and
+  'custom' (solver/linalg.py's blocked factorization, no kernel).
 
 On CUDA tensors the kernels run (f32); on CPU tensors their plain versions
 (f32 or f64).
@@ -77,32 +80,52 @@ class QpResult(NamedTuple):
     duals: QpDuals = None
 
 
+CHOL_IMPLS = ("auto", "fused", "pallas", "xla", "custom")
+# the composed path's Newton route per chol_impl (ops/ip_kernel.py ``_newton``)
+_ROUTES = {"auto": "kernels", "fused": "kernels", "pallas": "kernels", "xla": "plain",
+           "custom": "custom"}
+
+
 def _composed_solve(qp: QpData, iters, n_warm, k_stiff, mu0, box_margin, ratio_cap_override,
-                    warm_duals, ir_steps):
+                    warm_duals, ir_steps, route, compute_dtype=None):
+    fdt = None
+    if compute_dtype is not None:  # the IP arithmetic in compute_dtype, the solves in qp's
+        fdt = qp.g.dtype
+        qp = QpData(*[t.to(compute_dtype) for t in qp])
+        if warm_duals is not None:
+            warm_duals = QpDuals(*[t.to(compute_dtype) for t in warm_duals])
     consts = ip_consts(qp.g.dtype, ratio_cap_override)
     data, state = ip_init(qp.H, qp.g, qp.C, qp.c0, qp.lh, qp.uh, qp.z1, qp.z2, qp.lb, qp.ub,
                           mu0, box_margin, consts, warm_duals)
     phases, n_tail = ip_schedule(iters, n_warm, k_stiff, qp.c0.shape[-1])
     for k_s, n_iters, it0, tail in phases:
-        state = run_phase(data, state, k_s, n_iters, it0, consts, tail, kernels=True,
-                          ir_steps=ir_steps)
+        state = run_phase(data, state, k_s, n_iters, it0, consts, tail, route=route,
+                          ir_steps=ir_steps, fdt=fdt)
     return ip_finish(data, state, n_tail)
 
 
 def solve_qp(qp: QpData, iters: int = 8, mu0: float = 0.1, box_margin: float = 1e-6,
              k_stiff: int = 16, stiff_iters: int = None, ratio_cap_override: float = None,
              warm_duals: QpDuals = None, ir_steps: int = 0,
-             chol_impl: str = "auto") -> QpResult:
-    """Solve a batch of condensed QPs with ``iters`` IP iterations."""
+             chol_impl: str = "auto", compute_dtype=None) -> QpResult:
+    """Solve a batch of condensed QPs with ``iters`` IP iterations.
+
+    chol_impl: 'auto' / 'fused' (kernel 4 where it takes the problem, else
+    the composed path through kernels 5-8), 'pallas' (the composed path
+    through kernels 5-8), 'xla' (the composed path on torch.linalg's
+    Cholesky and cholesky_solve, the counterpart of jnp.linalg) or 'custom'
+    (the composed path on solver/linalg.py's blocked factorization).
+    compute_dtype: the IP vector arithmetic (residuals, gaps, Schur
+    coefficients, updates) in this dtype, the factorizations and solves in
+    the data's (solver/qp.py:132-136, 205-208); it takes the composed path."""
     nc = qp.c0.shape[-1]
-    if chol_impl not in ("auto", "fused", "pallas"):
-        raise NotImplementedError(
-            f"chol_impl={chol_impl!r} is not ported (only 'auto', 'fused' and 'pallas'; "
-            "see ROADMAP.md)")
+    if chol_impl not in CHOL_IMPLS:
+        raise ValueError(f"unknown chol_impl {chol_impl!r}: one of {CHOL_IMPLS}")
     n_stiff = min(stiff_iters if stiff_iters is not None else iters, iters)
     n_warm = iters - n_stiff if k_stiff > 0 else iters
-    fused = chol_impl != "pallas" and (
+    fused = chol_impl in ("auto", "fused") and (
         qp.g.dtype == torch.float32 and warm_duals is None and ir_steps == 0 and nc > 0
+        and compute_dtype is None
         and (n_stiff == 0 or (k_stiff % 8 == 0 and nc >= k_stiff)))
     if fused:
         run = make_fused_solve(iters=iters, n_warm=n_warm, k_stiff=k_stiff, mu0=mu0,
@@ -110,6 +133,6 @@ def solve_qp(qp: QpData, iters: int = 8, mu0: float = 0.1, box_margin: float = 1
         out = run(qp.H, qp.g, qp.C, qp.c0, qp.lh, qp.uh, qp.z1, qp.z2, qp.lb, qp.ub)
     else:
         out = _composed_solve(qp, iters, n_warm, k_stiff, mu0, box_margin, ratio_cap_override,
-                              warm_duals, ir_steps)
+                              warm_duals, ir_steps, _ROUTES[chol_impl], compute_dtype)
     dz, kkt, mu, *duals = out
     return QpResult(dz=dz, kkt_residual=kkt, complementarity=mu, duals=QpDuals(*duals))

@@ -1,7 +1,7 @@
 """SQP-RTI step, batch-first: linearize -> condense -> QP -> update.
 
-Counterpart of sdf_nmpc_tpu/solver/sqp.py ``make_rti_step`` on the condensed
-backend.  The JAX step is single-scenario and reaches its kernels through
+Counterpart of sdf_nmpc_tpu/solver/sqp.py ``make_rti_step`` on both QP
+backends.  The JAX step is single-scenario and reaches its kernels through
 ``custom_vmap`` rules; here every tensor carries the scenario axis first,
 (B, N+1, nx) and the like, and the step calls the kernel wrappers
 directly:
@@ -14,12 +14,13 @@ directly:
      then by ``torch.func``
   2. ``ops.sdf_fused.sdf_value_grad`` NeuralDF value + position gradient
      (``solver.sdf_fused_dtype``: f32, the default 3xTF32 route, bf16 or
-     mixed); for a NeuralDF with res != 'full' or under ``solver.fused_sdf:
-     False`` the autodiff row (``ocp.autodiff_value_grad``, torch.func), as
-     the JAX step takes it without a fused value+grad.  Only on the SDF
-     row's fast path (``ocp.sdf_row_batch``: sdf_constraint on, sdf_cost
-     off); otherwise every stage row goes through ``torch.func``, jacrev for
-     fewer than (nx + nu) / 2 rows, else jacfwd, as the JAX step
+     mixed); for a NeuralDF with res != 'full', an SDF callable
+     (``ocp.SdfFn``) or under ``solver.fused_sdf: False`` the autodiff row
+     (``ocp.autodiff_value_grad``, torch.func), as the JAX step takes it
+     without a fused value+grad.  Only on the SDF row's fast path
+     (``ocp.sdf_row_batch``: sdf_constraint on, sdf_cost off); otherwise
+     every stage row goes through ``torch.func``, jacrev for fewer than
+     (nx + nu) / 2 rows, else jacfwd, as the JAX step
   3. ``ops.condense_kernel.condense`` condensing recursion + condensed rows
      (at nh = 0, BASELINE config 1, its plain version, as the JAX step)
   4. ``ops.ip_kernel.ip_phase``       (inside ``solve_qp``) two IP phases, or
@@ -27,15 +28,23 @@ directly:
      path's Newton solves, one factor and one or more solves per iteration
 
 ``solve_qp`` picks the fused kernel 4 or the composed path from the config
-(``chol_impl``, ``dual_warm_start``, ``ir_steps``, ``qp_stiff_k``) and the
-rows (nc = 0 takes the composed path), as the JAX step does.  With
-``dual_warm_start`` the state carries the QP duals from tick to tick
-(acados' ``qp_solver_warm_start``).
+(``chol_impl``, ``dual_warm_start``, ``ir_steps``, ``qp_stiff_k``,
+``qp_compute_dtype``) and the rows (nc = 0 takes the composed path), as the
+JAX step does; ``chol_impl`` 'xla' and 'custom' run the composed path on
+torch.linalg or on solver/linalg.py.  With ``dual_warm_start`` the state
+carries the QP duals from tick to tick (acados' ``qp_solver_warm_start``).
+
+``qp_backend`` 'riccati' (and 'auto' beyond N = 20, ``resolve_qp_backend``)
+skips steps 3-5: the stage Hessians go to ``solver.qp_riccati``'s
+stage-wise interior point, which runs PyTorch ops (the JAX package has no
+Pallas kernel there), after kernels 1 or 9 and 2.  ``lin_impl`` 'xla'
+linearizes by torch.func and condenses by the plain recursion (no kernel
+1, 9 or 3); ``qp_data_bf16`` rounds H and C to bf16 before the QP.
 
 The FoV-row, extension-row, ``yN`` and terminal ``hN`` Jacobians use
 ``torch.func``; the Gram H/g assembly (``gram``) accumulates in f64, where
-the JAX step forms it in f32.  A non-finite update leaves the scenario's warm start untouched and
-reports STATUS_NAN.
+the JAX step forms it in f32.  A non-finite update leaves the scenario's
+warm start untouched and reports STATUS_NAN.
 """
 
 from __future__ import annotations
@@ -49,7 +58,8 @@ from torch.func import jacfwd, jacrev, vmap
 
 from ..ocp import OcpSpec, autodiff_value_grad
 from ..ops import condense_kernel, lin_kernels, sdf_fused
-from .qp import QpData, QpDuals, solve_qp
+from .qp import CHOL_IMPLS, QpData, QpDuals, solve_qp
+from .qp_riccati import StageQpData, solve_qp_riccati
 
 STATUS_OK = 0
 STATUS_NAN = 1
@@ -209,30 +219,34 @@ def _budget_knobs(cfg, budget: str):
     return qp_iters, k_stiff, stiff_iters, ratio_cap
 
 
-def _check_supported(cfg, N):
+# every solver knob the step reads, (default, the values it takes); any other
+# value raises rather than being dropped.  kernel 2's routes on the card: f32
+# IEEE on the CUDA cores (the JAX kernel's HIGHEST), f32x3 3xTF32 on the
+# tensor cores (its bf16x3 _dot3), bf16 and mixed on the bf16 tensor cores;
+# the CPU runs the exact plain version for every mode
+KNOBS = {"qp_backend": ("auto", ("auto", "condensed", "riccati")),
+         "chol_impl": ("auto", CHOL_IMPLS),
+         "lin_impl": ("auto", ("auto", "pallas", "xla")),
+         "fused_sdf": (True, (True, False)),
+         "sdf_fused_dtype": ("f32x3", sdf_fused.MODES),
+         "qp_data_bf16": (False, (False, True)),
+         "qp_compute_dtype": (None, (None, *_DTYPES))}
+
+
+def _check_supported(cfg):
     s = cfg.solver
-    if resolve_qp_backend(cfg, N) != "condensed":
-        raise NotImplementedError(
-            "only the condensed QP backend is ported; the Riccati backend is "
-            "queued in ROADMAP.md")
-    # every knob the port reads: (default, the values it ports); any other
-    # value raises rather than being dropped
-    ported = {"chol_impl": ("auto", ("auto", "fused", "pallas")),
-              "lin_impl": ("auto", ("auto", "pallas")), "fused_sdf": (True, (True, False)),
-              # kernel 2's routes on the card: f32 IEEE on the CUDA cores (the
-              # JAX kernel's HIGHEST), f32x3 3xTF32 on the tensor cores (its
-              # bf16x3 _dot3), bf16 and mixed on the bf16 tensor cores; the CPU
-              # runs the exact plain version for every mode
-              "sdf_fused_dtype": ("f32x3", sdf_fused.MODES),
-              "qp_data_bf16": (False, (False,)), "qp_compute_dtype": (None, (None,))}
-    bad = {k: s.get(k, d) for k, (d, ok) in ported.items() if s.get(k, d) not in ok}
+    bad = {k: s.get(k, d) for k, (d, ok) in KNOBS.items() if s.get(k, d) not in ok}
     if bad:
-        raise NotImplementedError(
-            f"solver settings not ported: {bad} (the XLA and custom linear-algebra "
-            "routes and the numerics-attribution hooks are queued in ROADMAP.md, section 1, "
-            "'The JAX solver knobs the port still refuses')")
+        raise ValueError(f"unknown solver settings {bad}; the values taken: "
+                         f"{ {k: ok for k, (_, ok) in KNOBS.items()} }")
     if str(s.dtype) not in _DTYPES:
         raise ValueError(f"unsupported solver dtype {s.dtype!r}")
+
+
+def bf16_round(t):
+    """t rounded to bfloat16 (nearest, ties to even) and back to its dtype:
+    the QP data under ``solver.qp_data_bf16`` (JAX sqp.py:631-637)."""
+    return t.to(torch.bfloat16).to(t.dtype)
 
 
 def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = True):
@@ -242,7 +256,7 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
     with_evals=False skips the per-node diagnostics (``ocp.eval_names``: the
     "sdf" row is a second NeuralDF pass over all N+1 nodes)."""
     N, nx, nu = ocp.N, ocp.nx, ocp.nu
-    _check_supported(cfg, N)
+    _check_supported(cfg)
     dtype = _DTYPES[str(cfg.solver.dtype)]
     dev = ocp.device
     if dev.type == "cuda" and dtype != torch.float32:
@@ -256,6 +270,13 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
     dual_ws = bool(cfg.solver.get("dual_warm_start", False))
     ir_steps = int(cfg.solver.get("ir_steps", 0))
     chol_impl = str(cfg.solver.get("chol_impl", "auto"))
+    use_riccati = resolve_qp_backend(cfg, N) == "riccati"
+    # lin_impl 'xla': the linearization by torch.func through RK4 and the
+    # plain condensing recursion, no kernel 1, 9 or 3 (JAX sqp.py:283-320)
+    lin_xla = str(cfg.solver.get("lin_impl", "auto")) == "xla"
+    qp_bf16 = bool(cfg.solver.get("qp_data_bf16", False))
+    compute_dtype = cfg.solver.get("qp_compute_dtype", None)
+    compute_dtype = _DTYPES[str(compute_dtype)] if compute_dtype else None
 
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
     dt = t(ocp.dt)
@@ -309,7 +330,7 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
     # linearization: kernel 1 where the model has a component-form residual
     # and the OCP's residual is the model's, else kernel 9 for x+, A, B and
     # torch.func for the residual rows, as the JAX step (sqp.py:282-310)
-    use_lin_y = ocp.model.y_lanes is not None and ocp.ny == ocp.model.ny
+    use_lin_y = ocp.model.y_lanes is not None and ocp.ny == ocp.model.ny and not lin_xla
 
     def y_node(x, u, p):
         y_fn = lambda xv, uv: ocp.y(xv, uv, p, net)
@@ -344,7 +365,8 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
             x_next, A, Bm, res, Jyx, Jyu = lin_kernels.lin_y_sens(
                 ocp.model, layout, XN_.contiguous(), UN_, dtN_, PN_, yref)
         else:
-            x_next, A, Bm = lin_kernels.erk4_sens(ocp.model, XN_.contiguous(), UN_, dtN_)
+            erk4_sens = lin_kernels.erk4_sens_plain if lin_xla else lin_kernels.erk4_sens
+            x_next, A, Bm = erk4_sens(ocp.model, XN_.contiguous(), UN_, dtN_)
             y_val, Jyx, Jyu = y_lin(XN_, UN_, PN_)
             res = y_val - yref
         ny = res.shape[-1]
@@ -380,16 +402,42 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
         else:
             hN_val, JhxN = X.new_zeros(B, 0), X.new_zeros(B, 0, nx)
 
-        # ---- 2. condensing: kernel 3; without constraint rows (enable_sdf
-        # off) the plain recursion, as JAX takes its non-kernel condensing at
-        # nh = 0 (sqp.py:501): kernel 3 needs nh >= 1 ----
         e0 = x0 - X[:, 0]
-        condense = condense_kernel.condense if nh else condense_kernel.condense_plain
+        Ws = W * scale[:N, None]
+        if use_riccati:
+            # ---- stage-structured (Riccati) backend: no condensing; LM as
+            # lm I on the stage Hessians and no linear term (JAX :450-494) ----
+            JyxW = Jyx.transpose(-1, -2) * Ws[:, :, None, :]  # (B, N, nx, ny)
+            JyuW = Jyu.transpose(-1, -2) * Ws[:, :, None, :]
+            JxNW = JxN.transpose(-1, -2) * WN[:, None, :]
+            eye_x = torch.eye(nx, dtype=dtype, device=dev)
+            sqd = StageQpData(
+                Q=torch.cat([JyxW @ Jyx, (JxNW @ JxN)[:, None]], 1) + lm * eye_x,
+                q=torch.cat([(JyxW @ res[..., None])[..., 0], (JxNW @ resN[..., None])[:, None, :, 0]],
+                            1),
+                R=JyuW @ Jyu + lm * torch.eye(nu, dtype=dtype, device=dev),
+                r=(JyuW @ res[..., None])[..., 0], Ssu=JyuW @ Jyx,
+                A=A, B=Bm, b=defect, e0=e0, Cx=Jhx, Cu=Jhu, c=h_val,
+                lh=lh.expand(B, -1), uh=uh.expand(B, -1),
+                z1=z1_stage.reshape(N, nh).expand(B, -1, -1),
+                z2=z2_stage.reshape(N, nh).expand(B, -1, -1),
+                CxN=JhxN, cN=hN_val, lhN=lhN.expand(B, -1), uhN=uhN.expand(B, -1),
+                z1N=zlN.expand(B, -1), z2N=ZlN.expand(B, -1), lb=lbu - U, ub=ubu - U)
+            rres = solve_qp_riccati(sqd, iters=qp_iters, mu0=mu0, box_margin=box_margin,
+                                    k_stiff=k_stiff, stiff_iters=stiff_iters,
+                                    ratio_cap_override=ratio_cap)
+            return finish(X, U, rres.ddx, rres.ddu, rres.kkt_residual, rres.complementarity,
+                          state.qp_duals, p)
+
+        # ---- 2. condensing: kernel 3; without constraint rows (enable_sdf
+        # off) or under lin_impl 'xla' the plain recursion, as JAX takes its
+        # non-kernel condensing at nh = 0 (sqp.py:501): kernel 3 needs nh >= 1 ----
+        condense = (condense_kernel.condense if nh and not lin_xla
+                    else condense_kernel.condense_plain)
         e_st, E_st, eN, EN, G, res_c, C_st, c_st = condense(
             *[v.contiguous() for v in (A, Bm, defect, e0, Jyx, Jyu, res, Jhx, Jhu, h_val)])
 
         # ---- 3. condensed Hessian / gradient: one Gram product ----
-        Ws = W * scale[:N, None]
         GN = JxN @ EN  # (B, nyN, nz)
         resN_c = resN + (JxN @ eN[..., None])[..., 0]
         # Levenberg-Marquardt rows (acados convention): 0.5 lm ||e_k + E_k dz||^2
@@ -404,6 +452,8 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
 
         C = torch.cat([C_st.reshape(B, N * nh, nz), JhxN @ EN], 1)
         c0 = torch.cat([c_st.reshape(B, N * nh), hN_val + (JhxN @ eN[..., None])[..., 0]], 1)
+        if qp_bf16:  # H and C stored in bf16, every computation in the solver dtype
+            H, C = bf16_round(H), bf16_round(C)
         qp = QpData(
             H=H, g=g, C=C, c0=c0,
             lh=lh_all.expand(B, -1), uh=uh_all.expand(B, -1),
@@ -416,28 +466,34 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
                           k_stiff=k_stiff, stiff_iters=stiff_iters,
                           ratio_cap_override=ratio_cap,
                           warm_duals=state.qp_duals if dual_ws else None,
-                          ir_steps=ir_steps, chol_impl=chol_impl)
+                          ir_steps=ir_steps, chol_impl=chol_impl, compute_dtype=compute_dtype)
         dz = qp_res.dz
 
         # ---- 5. linear trajectory update + NaN guard ----
-        dU = dz.reshape(B, N, nu)
+        # under a qp_compute_dtype dz comes in it, and the update promotes (JAX's einsum)
+        E_all = E_all.to(torch.promote_types(E_all.dtype, dz.dtype))
         dX = e_all + (E_all @ dz[:, None, :, None])[..., 0]
+        return finish(X, U, dX, dz.reshape(B, N, nu), qp_res.kkt_residual,
+                      qp_res.complementarity,
+                      qp_res.duals if state.qp_duals is not None else None, p)
+
+    def finish(X, U, dX, dU, kkt_residual, complementarity, duals, p):
+        """The trajectory update, the NaN guard and the status (both QP
+        backends, JAX sqp.py:361-394)."""
         U_new, X_new = U + dU, X + dX
         bad = ~(torch.isfinite(U_new).flatten(1).all(1) & torch.isfinite(X_new).flatten(1).all(1))
         status = torch.where(bad, STATUS_NAN, STATUS_OK).to(torch.int32)
         if kkt_tol is not None:
-            status = torch.where((status == STATUS_OK) & (qp_res.kkt_residual > kkt_tol),
+            status = torch.where((status == STATUS_OK) & (kkt_residual > kkt_tol),
                                  STATUS_NOT_CONVERGED, status).to(torch.int32)
         U_new = torch.where(bad[:, None, None], U, U_new)
         X_new = torch.where(bad[:, None, None], X, X_new)
         evals = None
         if with_evals and ocp.eval_fn is not None:
             evals = ocp.eval_fn(X_new, torch.cat([U_new, U_new[:, -1:]], 1), p, net)
-        return SolveResult(
-            state=SolverState(X=X_new, U=U_new,
-                              qp_duals=qp_res.duals if state.qp_duals is not None else None),
-            u0=U_new[:, 0], status=status, kkt_residual=qp_res.kkt_residual,
-            qp_complementarity=qp_res.complementarity, evals=evals)
+        return SolveResult(state=SolverState(X=X_new, U=U_new, qp_duals=duals),
+                           u0=U_new[:, 0], status=status, kkt_residual=kkt_residual,
+                           qp_complementarity=complementarity, evals=evals)
 
     n_sqp = int(cfg.solver.sqp_iters)
 

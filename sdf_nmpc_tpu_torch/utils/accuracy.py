@@ -21,8 +21,10 @@ are held against the oracle's ``recfeas_u0``.  ``variant='sdf_cost'`` adds
 the SDF stage cost row to config 4; no golden holds it (chip_smoke.py holds
 it against the port's f64 CPU step).
 
-``solver_over`` (cfg.solver overrides) runs the same checks under another
-solver configuration.  With ``dual_warm_start`` the cold solve starts from
+``solver_over`` (cfg.solver overrides, e.g. ``{"qp_backend": "riccati"}``)
+runs the same checks under another solver configuration, and ``N`` another
+horizon (T grown with N, so the interval stays 0.075 s, as the JAX
+workload's ``N`` override).  With ``dual_warm_start`` the cold solve starts from
 the seeded duals of ``init_state``, and the replay carries the QP duals of
 each scenario from one captured tick to the next, as a controller does
 (each tick replayed from its captured X, U and x0; tick 0, the cold tick,
@@ -131,20 +133,23 @@ def family_config(cfg, model=None):
     return cfg
 
 
-def build_setup(device="cuda", solver_over=None, model=None, variant="sdf"):
+def build_setup(device="cuda", solver_over=None, model=None, variant="sdf", N=None):
     """(cfg, ocp, layout, latents) of the workload: the trained production
     NeuralDF and its encoded-scene latents from ``weights/``; ``model``: a
     quad family other than the default att.  ``variant``: 'sdf' (BASELINE
     config 4), 'nosdf' (config 1: enable_sdf off, no network, latents
     None: the scenarios keep the seeded draw, which no row reads),
     'recfeas' (config 4 with recursive feasibility and stability) or
-    'sdf_cost' (config 4 with the SDF stage cost row)."""
+    'sdf_cost' (config 4 with the SDF stage cost row).  ``N``: the horizon
+    (None: the reference 20), T scaled with it."""
     from ..config import default_config
     from ..nn.weights import load_prod_latents, load_prod_sdf
     from ..ocp import build_ocp
     from ..params import ParamLayout
 
     cfg = family_config(default_config().replace(nn=dict(size_latent=LATENT)), model)
+    if N is not None:
+        cfg = cfg.replace(mpc=dict(N=int(N), T=float(cfg.mpc.T) * N / cfg.mpc.N))
     if solver_over:
         cfg = cfg.replace(solver=solver_over)
     if variant == "nosdf":
@@ -205,20 +210,27 @@ def cold_reference(model=None, variant="sdf"):
     return np.load(ORACLE_NPZ)[f"{ORACLE_KEYS[model]}_u0"], FAMILY_SCEN
 
 
+def solve_batch(device="cuda", solver_over=None, variant="sdf", n=None, model=None, N=None):
+    """One cold step on the first n (all N_SCEN) scenarios of the workload at
+    horizon N (JAX :183-211): (u0 (n, nu), status (n,)) in numpy."""
+    from ..solver import init_state, make_rti_step
+
+    cfg, ocp, layout, lat = build_setup(device, solver_over, model, variant, N)
+    dtype = torch.float64 if str(cfg.solver.dtype) == "float64" else torch.float32
+    inputs = scenario_inputs(ocp, build_scenarios(cfg, ocp, layout, lat)[:n or N_SCEN], dtype,
+                             ocp.device)
+    state = init_state(ocp, inputs.x0, dtype, dual_warm_start=_dual_ws(cfg))
+    res = make_rti_step(ocp, cfg, with_evals=False)(state, inputs)
+    return res.u0.double().cpu().numpy(), res.status.cpu().numpy()
+
+
 def check_accuracy(device="cuda", solver_over=None, model=None, variant="sdf"):
     """Cold-start u0 error against the family's golden (cold_reference);
     ``variant`` 'nosdf' (BASELINE config 1) and 'recfeas' against the
     oracle's nosdf_u0 and recfeas_u0, as the JAX package's
     utils/accuracy.py:118-176 and tests/test_oracle_parity.py hold them."""
-    from ..solver import init_state, make_rti_step
-
     ref, n = cold_reference(model, variant)
-    cfg, ocp, layout, lat = build_setup(device, solver_over, model, variant)
-    dtype = torch.float64 if str(cfg.solver.dtype) == "float64" else torch.float32
-    inputs = scenario_inputs(ocp, build_scenarios(cfg, ocp, layout, lat)[:n], dtype, ocp.device)
-    state = init_state(ocp, inputs.x0, dtype, dual_warm_start=_dual_ws(cfg))
-    res = make_rti_step(ocp, cfg, with_evals=False)(state, inputs)
-    u0, status = res.u0.double().cpu().numpy(), res.status.cpu().numpy()
+    u0, status = solve_batch(device, solver_over, variant, n, model)
     err = np.abs(u0 - ref).max(axis=1)
     return {"u0_max_err": float(err.max()), "u0_mean_err": float(err.mean()),
             "n_ok": int((status == 0).sum()), "n_scen": n}

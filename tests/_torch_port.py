@@ -13,6 +13,19 @@ import pytest
 import torch
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread while a module's tests run, the count
+    restored after it.  The suite runs in several worker processes at once
+    (pytest-xdist), and an OpenMP pool of every core in each of them
+    oversubscribes the machine: each small op's fork-join waits for threads
+    the other workers hold.  A module takes it by importing it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda_device():
     """The CUDA device for tests marked ``gpu``; decided here, at run time."""
@@ -84,6 +97,7 @@ CXX_FLAGS = ("-std=c++20", "-O1", "-pthread", "-ffp-contract=off", "-fno-strict-
 CUDA_RUNTIME_H = r"""
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
@@ -185,6 +199,20 @@ cudaError_t launch(void (*kernel)(P...), dim3 grid, dim3 block, size_t smem_byte
 #define blockDim emu::block_dim
 
 inline void __syncthreads() { emu::block_barrier->arrive_and_wait(); }
+namespace emu {
+inline std::atomic<int> sync_or{0};
+}
+// The block's vote between barriers: set, read, then reset by thread 0
+// before anyone can set it again.
+inline int __syncthreads_or(int pred) {
+  if (pred) emu::sync_or.store(1);
+  emu::block_barrier->arrive_and_wait();
+  const int out = emu::sync_or.load();
+  emu::block_barrier->arrive_and_wait();
+  if (threadIdx.x == 0) emu::sync_or.store(0);
+  emu::block_barrier->arrive_and_wait();
+  return out;
+}
 inline void __syncwarp(unsigned = 0xffffffffu) {
   emu::warp_barriers[threadIdx.x >> 5]->arrive_and_wait();
 }

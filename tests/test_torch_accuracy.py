@@ -1,6 +1,8 @@
 """The port's f32 plain path on the main path's accuracy workload, against
 the repo's goldens, with the JAX package's CI gate."""
 
+from _torch_port import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 
 def test_f32_plain_path_passes_ci_gate_on_goldens():
     """The port's f32 plain path on the 32 cold scenarios of

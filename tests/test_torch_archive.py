@@ -20,6 +20,7 @@ from sdf_nmpc_tpu.nn.torch_import import (
     import_neural_df,
     load_torchscript_state_dict,
 )
+from _torch_port import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 torch = pytest.importorskip("torch")
 

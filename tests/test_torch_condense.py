@@ -5,7 +5,7 @@
 import jax
 import numpy as np
 
-from _torch_port import t32, t64
+from _torch_port import one_torch_thread, t32, t64  # noqa: F401  (fixtures)
 
 RNG = np.random.default_rng(3)
 NAMES = ("e_stage", "E_stage", "eN", "EN", "G", "res_c", "C", "c0")

@@ -12,6 +12,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from _torch_port import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = Path(__file__).resolve().parents[1]
 

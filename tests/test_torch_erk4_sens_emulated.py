@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from _torch_port import CSRC, build_emulated, load_emulated, t32, use_emulated
+from _torch_port import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ERK4_TOL = 1e-4  # chip_smoke.py: per output, max |kernel - plain| <= 1e-4 (1 + max |plain|)
 

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import t32, t64
+from _torch_port import one_torch_thread, t32, t64  # noqa: F401  (fixtures)
 
 RNG = np.random.default_rng(31)
 FAMILIES = ("acc", "att_tau", "rates", "wrench", "props")

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import jax_net, port_net
+from _torch_port import jax_net, one_torch_thread, port_net  # noqa: F401  (fixtures)
 from test_torch_families import family_configs
 
 L = 16  # narrow net: latent 16, 4 x 32

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import jax_net, port_net, t64
+from _torch_port import jax_net, one_torch_thread, port_net, t64  # noqa: F401  (fixtures)
 from test_torch_families import family_configs
 from test_torch_family_step import family_scenarios, step_inputs
 

@@ -8,6 +8,8 @@ host that has only PyTorch (``tests/conftest.py`` imports JAX, hence
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -762,9 +764,10 @@ def test_nan_in_one_scenario_stays_there(cuda_device, monkeypatch):
     over, once clean and once with a NaN in one scenario's A_5 (kernel 1's
     output, before kernel 3 condenses it): that scenario reports STATUS_NAN
     and keeps its iterate, and every other scenario's result equals the
-    clean run's bit for bit.  Kernel 3 skips E_k's zero columns, so the NaN
-    reaches e_6 and the live columns, not the zero ones; the step's status
-    must not change for that."""
+    clean run's bit for bit.  Kernel 3 takes the products of E's zero
+    columns from the stage of the NaN on (0 * NaN = NaN, as the JAX
+    kernel), so the NaN reaches every column from stage 5 on; only that
+    scenario may change."""
     from sdf_nmpc_tpu_torch.ops import lin_kernels
     from sdf_nmpc_tpu_torch.solver import STATUS_NAN, STATUS_OK, init_state, make_rti_step
     from sdf_nmpc_tpu_torch.utils import accuracy
@@ -1012,3 +1015,112 @@ def test_image_fed_mission_tick_on_card(cuda_device):
     assert not stale and vae.img.is_cuda and vae.latent.is_cuda and ocp.device.type == "cuda"
     assert tick.flag_active and tick.fail_count == 0 and np.isfinite(tick.cmd).all()
     assert launched == {"lin_y_sens": 1, "sdf_fused_x3": 1, "condense": 1, "ip_phase": 2}
+
+
+@pytest.mark.gpu
+def test_condense_kernel_nonfinite_as_plain(cuda_device):
+    """Kernel 3 on non-finite inputs: NaN in one scenario's A_3, +Inf in
+    another's Jyx_1 and NaN in a third's Jhx_4 (att's widths, N = 20, 64
+    scenarios): the outputs are NaN and +-Inf exactly where the plain
+    version's are (E's zero columns take the products from that stage on,
+    0 * NaN = NaN, as the JAX kernel's), the finite entries as in
+    test_condense_kernel_shapes, and the finite scenarios bit-equal to the
+    same launch without the non-finite entries."""
+    from sdf_nmpc_tpu_torch.ops.condense_kernel import condense, condense_plain
+
+    args = _condense_args(64, 20, 10, 4, 11, 3, np.random.default_rng(5), cuda_device)
+    clean = condense(*args)
+    args[0][0, 3, 1, 7] = float("nan")
+    args[4][1, 1, 0, 2] = float("inf")
+    args[7][2, 4, 2, 0] = float("nan")
+    n0 = _count("condense")
+    got = condense(*args)
+    assert _count("condense") == n0 + 1
+    want = condense_plain(*args)
+    for i, (g, w, c) in enumerate(zip(got, want, clean)):
+        assert torch.equal(torch.isnan(g), torch.isnan(w)), i
+        assert torch.equal(torch.isinf(g), torch.isinf(w)), i
+        fin = torch.isfinite(w)
+        excess = float(((g[fin].double() - w[fin].double()).abs()
+                        - 1e-5 * w[fin].double().abs()).max())
+        assert excess <= 1e-5, (i, excess)
+        assert torch.equal(g[3:], c[3:]), i
+    assert bool(torch.isnan(got[1][0, 5:]).all())  # all of E two stages after A_3
+
+
+@pytest.mark.gpu
+def test_riccati_step_at_n60_matches_the_cpu_plain_step(cuda_device):
+    """att at N = 60 (T = 4.5 s) with the trained NeuralDF, default
+    settings (qp_backend auto: Riccati), one cold step at B = 64 on the
+    card (kernels 1 and 2, once each; no kernel 3-8) against the f32 plain
+    step on the CPU on the same inputs: every status OK and finite, u0
+    under the JAX package's CI gate (mean <= 2.5e-4, max <= 2.5e-3), the
+    kernels' last bits being all that differs."""
+    from sdf_nmpc_tpu_torch.ocp import build_ocp
+    from sdf_nmpc_tpu_torch.ops import _lib
+    from sdf_nmpc_tpu_torch.solver import SolveInputs, init_state, make_rti_step
+    from sdf_nmpc_tpu_torch.utils import accuracy
+
+    cfg, ocp, layout, lat = accuracy.build_setup(device=cuda_device, N=60)
+    scen = accuracy.build_scenarios(cfg, ocp, layout, lat)
+    inputs = accuracy.scenario_inputs(ocp, scen, torch.float32, cuda_device, reps=2)
+    _lib.reset_launch_counts()
+    res = make_rti_step(ocp, cfg, with_evals=False)(init_state(ocp, inputs.x0), inputs)
+    counts = dict(_lib.launch_counts)
+    assert counts["lin_y_sens"] == counts["sdf_fused_x3"] == 1
+    assert sum(counts.values()) == 2, counts
+    cpu_ocp = build_ocp(cfg, sdf=copy.deepcopy(ocp.sdf).cpu(), sdf_max_df=1.0, device="cpu")
+    cpu_in = SolveInputs(*[t.cpu() for t in inputs])
+    want = make_rti_step(cpu_ocp, cfg, with_evals=False)(init_state(cpu_ocp, cpu_in.x0), cpu_in)
+    assert bool((res.status == 0).all()) and bool((want.status == 0).all())
+    assert torch.isfinite(res.state.X).all()
+    err = (res.u0.cpu().double() - want.u0.double()).abs().amax(-1)
+    print(f"u0 card vs CPU plain: mean {float(err.mean()):.3e} max {float(err.max()):.3e}")
+    assert accuracy.ci_gate_ok(float(err.mean()), float(err.max()))
+
+
+@pytest.mark.gpu
+def test_closed_loop_ticks_on_card_match_the_cpu(cuda_device):
+    """tests/test_sim.py's sphere scene in f32, 10 closed-loop ticks at B =
+    2 on the card (kernels 1, 3 and 4 every tick; the oracle row launches no
+    kernel 2) against the same rollout on the CPU's plain versions: every
+    status OK, xs within 1e-3 (f32 kernels' last bits through 10 chained
+    ticks)."""
+    from sdf_nmpc_tpu_torch.config import default_config
+    from sdf_nmpc_tpu_torch.ocp import build_ocp
+    from sdf_nmpc_tpu_torch.ops import _lib
+    from sdf_nmpc_tpu_torch.ref_gen import Ref
+    from sdf_nmpc_tpu_torch.sim import Scene, make_closed_loop, make_scene_sdf_fn, scene_sdf
+    from sdf_nmpc_tpu_torch.solver import SolveInputs
+
+    cfg = default_config().replace(nn=dict(size_latent=8), solver=dict(qp_iters=10))
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        scene = Scene.make(spheres=[([1.2, 0.05, 0.0], 0.35)], device=dev)
+        ocp = build_ocp(cfg, sdf=make_scene_sdf_fn(scene), sdf_max_df=1.0, device=dev)
+        N, B = ocp.N, 2
+        p = np.zeros((B, N + 1, ocp.layout.np_total))
+        ocp.layout.set_flag(p, 1.0)
+        ocp.layout.set_camera(p, np.zeros(3), np.eye(3))
+        ocp.layout.set_q_d(p, [1, 0, 0, 0])
+        ref = Ref(cfg).use_constrained_weights(False)
+        ref.p = np.array([2.0, 0.0, 0.0])
+        yr, W = ocp.pack_ref(ref)
+        x0 = np.zeros((B, 10))
+        x0[:, 3] = 1.0
+        x0[1, 1] = 0.1
+        T = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+        inputs = SolveInputs(x0=T(x0), yref=T(np.tile(yr, (B, N, 1))), W=T(np.tile(W, (B, N, 1))),
+                             yrefN=T(np.tile(yr[:ocp.nyN], (B, 1))),
+                             WN=T(np.tile(W[:ocp.nyN], (B, 1))), p=T(p))
+        _lib.reset_launch_counts()
+        res = make_closed_loop(ocp, cfg, n_ticks=10,
+                               scene_sdf_fn=lambda q, s=scene: scene_sdf(s, q))(inputs.x0, inputs)
+        if dev.type == "cuda":
+            counts = dict(_lib.launch_counts)
+            assert counts["lin_y_sens"] == counts["condense"] == 10, counts
+            assert counts["ip_phase"] == 20 and counts["sdf_fused_x3"] == 0, counts
+        assert bool((res.statuses == 0).all())
+        out.append(res.xs.cpu())
+    print(f"xs card vs CPU: {float((out[0] - out[1]).abs().max()):.3e}")
+    torch.testing.assert_close(out[0], out[1], atol=1e-3, rtol=0)

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from _torch_port import CSRC, build_emulated, load_emulated, t32, use_emulated
+from _torch_port import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 EXTRA = r"""
 cudaError_t cudaLaunchKernel(const void* fn, dim3 grid, dim3 block, void** args, size_t smem,

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import t32, t64
+from _torch_port import one_torch_thread, t32, t64  # noqa: F401  (fixtures)
 
 
 def _qp(B, nz, nc, seed=3):
@@ -133,12 +133,15 @@ def test_plain_f64_matches_solve_qp_xla():
 
 
 def test_unsupported_settings_raise():
-    """The linear-algebra routes of the JAX package that are not ported
-    ('xla', 'custom') raise and name ROADMAP.md; warm duals and refinement
-    take the composed path (tests/test_torch_qp_composed.py)."""
+    """The JAX package's other linear-algebra routes ('xla', 'custom') run
+    the composed path since their port (tests/test_torch_linalg.py), and a
+    chol_impl the JAX package does not name raises, naming the values; warm
+    duals and refinement take the composed path
+    (tests/test_torch_qp_composed.py)."""
     from sdf_nmpc_tpu_torch.solver.qp import QpData, solve_qp
 
     q = QpData(**{k: t64(v) for k, v in _qp(2, 8, 4).items()})
     for impl in ("xla", "custom"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            solve_qp(q, chol_impl=impl)
+        assert torch.isfinite(solve_qp(q, chol_impl=impl).dz).all()
+    with pytest.raises(ValueError, match="custom"):
+        solve_qp(q, chol_impl="cusolver")

@@ -10,6 +10,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from _torch_port import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "sdf_nmpc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from _torch_port import CSRC, build_emulated, load_emulated, t32, use_emulated
+from _torch_port import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _build(tmp_path_factory, source):
@@ -77,6 +78,45 @@ def test_condense_emulated(emulated_condense, monkeypatch, B, N, nx, nu, ny, nh)
     words = (nx + ny + nh) * r4(nx) + sum(map(r4, (nx * nu, ny * nu, nh * nu, nx, ny, nh)))
     assert geo["threads"] == ((nz + 3) // 4 + 32) // 32 * 32
     assert geo["smem_bytes"] == 2 * 4 * words
+
+
+def _nonfinite_inputs():
+    """_condense_inputs at nz 10 (B = 4) with a non-finite entry in one
+    scenario each: NaN in A at stage 2, +Inf in Jyx at stage 1, NaN in Jhx
+    at stage 3; scenario 3 finite."""
+    args = _condense_inputs(4, 5, 4, 2, 6, 2, seed=11)
+    args[0][0, 2, 1, 3] = float("nan")
+    args[4][1, 1, 0, 2] = float("inf")
+    args[7][2, 3, 1, 0] = float("nan")
+    return args
+
+
+def test_condense_emulated_nonfinite_as_the_jax_kernel(emulated_condense, monkeypatch):
+    """Where A_k, Jyx_k or Jhx_k hold a non-finite entry, the kernel's
+    outputs are NaN (and +-Inf) exactly where the plain version's and the
+    JAX kernel's (interpret mode) are: E's zero columns take the products
+    (0 * NaN = NaN) from that stage on.  The finite entries agree at 1e-5;
+    the finite scenario is untouched."""
+    import jax
+
+    from sdf_nmpc_tpu.ops.condense_kernel import condense_nodes
+    from sdf_nmpc_tpu_torch.ops import condense_kernel as ck
+
+    use_emulated(monkeypatch, emulated_condense)
+    args = _nonfinite_inputs()
+    got = ck._condense_cuda(*args)
+    want = ck.condense_plain(*args)
+    jax_out = jax.jit(jax.vmap(condense_nodes))(*[a.numpy() for a in args])
+    for g, w, j in zip(got, want, jax_out):
+        j = torch.as_tensor(np.asarray(j))
+        for ref in (w, j):
+            assert torch.equal(torch.isnan(g), torch.isnan(ref))
+            assert torch.equal(torch.isinf(g), torch.isinf(ref))
+            fin = torch.isfinite(ref)
+            torch.testing.assert_close(g[fin], ref[fin], rtol=1e-5, atol=1e-5)
+    E_st = got[1]
+    assert bool(torch.isnan(E_st[0, 3:, :, 8:]).any())  # zero columns after A's NaN
+    assert bool(torch.isfinite(torch.cat([o[3].flatten() for o in got])).all())
 
 
 def test_condense_refuses_sizes_beyond_the_kernel():

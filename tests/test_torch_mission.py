@@ -23,7 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from _torch_port import jax_net, port_net
+from _torch_port import jax_net, one_torch_thread, port_net  # noqa: F401  (fixtures)
 from test_torch_vae import _init, _perturbed
 
 L = 8

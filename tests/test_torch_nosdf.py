@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from test_torch_families import family_configs
+from _torch_port import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 NOSDF = dict(flags=dict(enable_sdf=False))
 

@@ -6,6 +6,7 @@ make_rti_step; att, acc and att_tau are in test_torch_nosdf.py."""
 import pytest
 
 from test_torch_nosdf import nosdf_step_matches_jax
+from _torch_port import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 @pytest.mark.parametrize("model", ["rates", "wrench", "props"])

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from test_torch_vae import _init, _perturbed
+from _torch_port import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 RNG = np.random.default_rng(31)
 TOL = dict(rtol=1e-10, atol=1e-10)

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import jax_net, port_net, t32, t64
+from _torch_port import jax_net, one_torch_thread, port_net, t32, t64  # noqa: F401  (fixtures)
 from test_torch_ip_kernel import _qp
 from test_torch_rti_step import L, _configs, _jax_inputs, _port_inputs, _scenarios
 

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from _torch_port import t32, t64
+from _torch_port import one_torch_thread, t32, t64  # noqa: F401  (fixtures)
 
 N_LANES = 128  # one lane tile, the batch tests/test_qp_kernels.py interprets
 B = 4  # real scenarios; the rest of the lane tile repeats them

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import jax_net, port_net
+from _torch_port import jax_net, one_torch_thread, port_net  # noqa: F401  (fixtures)
 
 L = 16  # narrow net: latent 16, 4 x 32
 
@@ -194,15 +194,18 @@ def _narrow_ocp():
 
 
 def test_unsupported_settings_raise():
-    """The Riccati backend is not ported and raises, naming ROADMAP.md;
-    recursive feasibility without its braking-distance polynomial raises
-    and names the missing argument, as the JAX build_ocp does."""
+    """The Riccati backend builds a step (since its port; 'auto' resolves
+    to it beyond N = 20), and an unknown qp_backend raises, naming the
+    values taken; recursive feasibility without its braking-distance
+    polynomial raises and names the missing argument, as the JAX build_ocp
+    does."""
     from sdf_nmpc_tpu_torch.ocp import build_ocp
     from sdf_nmpc_tpu_torch.solver import make_rti_step
 
     ocp, tc, net = _narrow_ocp()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_rti_step(ocp, tc.replace(solver={"qp_backend": "riccati"}))
+    assert callable(make_rti_step(ocp, tc.replace(solver={"qp_backend": "riccati"})))
+    with pytest.raises(ValueError, match="riccati"):
+        make_rti_step(ocp, tc.replace(solver={"qp_backend": "sparse"}))
     with pytest.raises(ValueError, match="bdist_coeffs"):
         build_ocp(tc.replace(flags=dict(recursive_feasibility=True)), sdf=net, device="cpu")
 
@@ -211,13 +214,18 @@ def test_unsupported_settings_raise():
                                   {"lin_impl": "xla"}, {"qp_data_bf16": True},
                                   {"qp_compute_dtype": "float64"}])
 def test_unported_knob_values_raise(over):
-    """A solver knob the port reads either means what it means in the JAX
-    package or raises and names ROADMAP.md: none is read and dropped."""
+    """A solver knob the port reads means what it means in the JAX package
+    or raises: these values, once refused, build a step since their port
+    (tests/test_torch_linalg.py, test_torch_solver_knobs.py), and the same
+    knob with a value the JAX package does not take raises, naming the
+    values taken: none is read and dropped."""
     from sdf_nmpc_tpu_torch.solver import make_rti_step
 
     ocp, tc, _ = _narrow_ocp()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_rti_step(ocp, tc.replace(solver=over))
+    assert callable(make_rti_step(ocp, tc.replace(solver=over)))
+    (knob, _), = over.items()
+    with pytest.raises(ValueError, match=knob):
+        make_rti_step(ocp, tc.replace(solver={knob: "bogus"}))
 
 
 @pytest.mark.parametrize("over", [{"fused_sdf": False}, {"sdf_fused_dtype": "bf16"},

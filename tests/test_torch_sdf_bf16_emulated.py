@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from _torch_port import BF16_CUH, CSRC, build_emulated, load_emulated, t32, use_emulated
+from _torch_port import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 @pytest.fixture(scope="module")

@@ -7,6 +7,7 @@ goes through reverse mode, as the JAX step does.  f64, narrow network."""
 import pytest
 
 from test_torch_formulation import check_step_matches_jax
+from _torch_port import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 @pytest.mark.parametrize("model", ["att", "acc", "att_tau", "rates"])

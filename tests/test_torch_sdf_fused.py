@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import jax_net, port_net, t32, t64
+from _torch_port import jax_net, one_torch_thread, port_net, t32, t64  # noqa: F401  (fixtures)
 
 RNG = np.random.default_rng(17)
 

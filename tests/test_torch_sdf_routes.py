@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import port_net, t64
+from _torch_port import one_torch_thread, port_net, t64  # noqa: F401  (fixtures)
 from test_torch_family_step import family_scenarios
 from test_torch_families import family_configs
 from test_torch_nosdf import chained_ticks_match

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_port import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 RNG = np.random.default_rng(12)
 TOL = dict(rtol=1e-10, atol=1e-10)

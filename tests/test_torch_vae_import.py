@@ -12,6 +12,7 @@ import torch
 
 from test_torch_archive import _RefVae
 from tests.test_nn import build_torch_neural_df
+from _torch_port import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 RNG = np.random.default_rng(21)
 TOL = dict(rtol=1e-10, atol=1e-10)
