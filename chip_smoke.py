@@ -175,14 +175,32 @@ failure raises and exits non-zero before the result line:
    1024 on the 32 accuracy scenarios repeated under ``chol_impl: xla``,
    ``chol_impl: custom``, ``lin_impl: xla``, ``qp_data_bf16`` and
    ``qp_compute_dtype: float64``: u0 against the golden (the CI gate; not
-   gated under qp_data_bf16), the launches each route implies.
+   gated under qp_data_bf16), the launches each route implies;
+22. the training side (``--training``): the GT data engine on 100 seeded
+   scenes rendered at 270 x 480 on the card, one DfTrainConfig batch (50
+   images x 2,500 points) labelled by ColChecker and the signed DfComputer
+   (timed, peak memory), 2,000 seeded points of it against the f64 CPU
+   search (a label may differ only within F32_MARGIN of a decision's
+   boundary); train_vae at the reference's sizes (latent 128, batch norm,
+   dropout 0.1, batch 16, the augmenter and erosion labels) over 32 of the
+   images, 2 epochs then a resume, ms per step, images/s and peak memory,
+   one step against f64 on the CPU (batch 2, dropout off; TRAIN_*_TOL,
+   VAE_GRAD_RTOL);
+   train_df at the reference's sizes (4 x 256, latent 128, dropout 0.1,
+   batch 50 x 2,500) against that encoder over the 100 images, 2 epochs
+   then a resume, ms per step by part (encode, sampling, GT, forward /
+   double backward, update), one step of 5,000 points against f64 on the
+   CPU; the trained network packed for kernel 2 (f32x3 and f32 routes held)
+   and one cold config-4 att step at B=1024 on the trained encoder's
+   latents, kernels 1-4 held on every launch (kernel 4's iterates as
+   recfeas's, phase 17, with ILL_SHARE_SIGMAS), statuses finite and OK.
 
 The last lines are the ``kernels`` JSON (all nine kernels, kernel 2 as one
 row per route, each with its per-launch times ``launch_ms``; the rows of
 kernels 1, 3 and 9 carry each model's numbers under ``per_model``, and at
 top level att's (for kernel 9 att's under sdf_cost); the rows of kernels
-1-9 that the formulation extras, config 3, the long horizons and the
-closed loop run carry those readings
+1-9 that the formulation extras, config 3, the long horizons, the
+closed loop and the training side's served network run carry those readings
 under ``per_path``; kernel 4's row ``launch_k_s`` and
 ``geometry``, kernel 2's rows (f32, f32x3, bf16, mixed) and the
 rows of kernels 1, 3, 5, 7, 8 and 9 their ``geometry``; the ``launches`` of
@@ -220,8 +238,8 @@ print no result line):
         phases 1, 2 and 17: the formulation extras.
     python3 chip_smoke.py --perception
         phases 1, 2 and 18: perception, BASELINE config 3.
-    python3 chip_smoke.py --long-horizon | --closed-loop | --solver-routes
-        phases 1, 2 and 19 (20, 21) alone.
+    python3 chip_smoke.py --long-horizon | --closed-loop | --solver-routes | --training
+        phases 1, 2 and 19 (20, 21, 22) alone.
 """
 
 from __future__ import annotations
@@ -759,7 +777,7 @@ def check_condense(args) -> float:
     return max(errs)
 
 
-def held_as_plain(label: str, got, want, ref64, scale) -> bool:
+def held_as_plain(label: str, got, want, ref64, scale, share_sigmas=0.0) -> bool:
     """Prints the readings of got (kernel), want (plain f32) and both
     against ref64 (plain f64), per scenario over scale (None: absolute), and
     says whether the kernel is as accurate as the plain version against f64
@@ -767,14 +785,14 @@ def held_as_plain(label: str, got, want, ref64, scale) -> bool:
     thr, kind = QP_RULE[0], "abs" if scale is None else "rel"
     if scale is None:
         scale = torch.ones(got.shape[0], dtype=torch.float64, device=got.device)
-    (kp, k64, p64), ok = as_accurate(got, want, ref64, scale)
+    (kp, k64, p64), ok = as_accurate(got, want, ref64, scale, share_sigmas)
     fmt = lambda rd: f"median {rd[1]:.1e}, max {rd[2]:.1e}, {rd[0]:.2%} above {thr:g}"
     log(f"  {label} {kind}: kernel vs f64 {fmt(k64)}; plain f32 vs f64 {fmt(p64)}; kernel vs "
         f"plain {fmt(kp)}")
     return ok
 
 
-def check_ip(args, label: str, as_plain=False) -> float:
+def check_ip(args, label: str, as_plain=False, share_sigmas=0.0) -> float:
     """Kernel 4 on one launch against its plain version: dz, best_dz, the
     best merit and the tail sum under IP_FIELDS' rules, or with
     ``as_plain`` (phase 16) each as accurate as the plain version against
@@ -795,7 +813,8 @@ def check_ip(args, label: str, as_plain=False) -> float:
         scale = merit_scale(data, want[10]) if relative else None  # at the plain best_dz
         what = f"ip_phase    {label} (k_s={k_s}, {n_iters} iters) {name}"
         plain_rule = name in as_plain if isinstance(as_plain, tuple) else as_plain
-        if not (held_as_plain(what, got[i], want[i], ref64[i], scale) if plain_rule else
+        if not (held_as_plain(what, got[i], want[i], ref64[i], scale, share_sigmas)
+                if plain_rule else
                 held(what, got[i], want[i], ref64[i], scale, rule)):
             failed.append(name)
     if failed:
@@ -803,7 +822,7 @@ def check_ip(args, label: str, as_plain=False) -> float:
     return max_abs(got[0], want[0])
 
 
-def check_fused_solve(call, label: str, as_plain=False) -> float:
+def check_fused_solve(call, label: str, as_plain=False, share_sigmas=0.0) -> float:
     """The whole fused solve, both kernel launches then the best-iterate
     choice, the tail average and the KKT residual, against the same solve
     with the plain phases, on one captured QP; ``as_plain`` as check_ip."""
@@ -818,9 +837,9 @@ def check_fused_solve(call, label: str, as_plain=False) -> float:
     same_finite(f"fused solve {label}", got[:3], want[:3])
     if as_plain:
         ok_dz = held_as_plain(f"fused solve {label} selected dz", got.dz, want.dz, ref64.dz,
-                              None)
+                              None, share_sigmas)
         ok_kkt = held_as_plain(f"fused solve {label} kkt", got.kkt_residual, want.kkt_residual,
-                               ref64.kkt_residual, kkt_scale(qp, want))
+                               ref64.kkt_residual, kkt_scale(qp, want), share_sigmas)
     else:
         ok_dz = held(f"fused solve {label} selected dz", got.dz, want.dz, ref64.dz, None,
                      BEST_RULE)
@@ -831,11 +850,12 @@ def check_fused_solve(call, label: str, as_plain=False) -> float:
     return max_abs(got.dz, want.dz)
 
 
-def check_all(cap: Capture, label: str, as_plain=False, sdf_route=None) -> dict:
+def check_all(cap: Capture, label: str, as_plain=False, sdf_route=None,
+              share_sigmas=0.0) -> dict:
     """Kernels 1, 3 and 4 (each launch and the whole fused solve; see
-    check_ip for ``as_plain``) and, where the step called it, kernel 2 by
-    its four routes (or by ``sdf_route`` alone), against their plain
-    versions on the captured inputs."""
+    check_ip for ``as_plain``, as_accurate for ``share_sigmas``) and, where
+    the step called it, kernel 2 by its four routes (or by ``sdf_route``
+    alone), against their plain versions on the captured inputs."""
     sdf = ({} if not cap.args("sdf") else check_sdf_routes(cap) if sdf_route is None else
            {sdf_route: max(check_sdf(a, sdf_route) for a in cap.args("sdf"))})
     errs = {
@@ -843,9 +863,9 @@ def check_all(cap: Capture, label: str, as_plain=False, sdf_route=None) -> dict:
         **sdf,
         "condense": max(check_condense(a) for a in cap.args("condense")),
     }
-    errs["ip_phase"] = max([check_ip(a, f"{label} launch {i}", as_plain)
+    errs["ip_phase"] = max([check_ip(a, f"{label} launch {i}", as_plain, share_sigmas)
                             for i, a in enumerate(cap.args("ip_phase"))]
-                           + [check_fused_solve(c, label, as_plain)
+                           + [check_fused_solve(c, label, as_plain, share_sigmas)
                               for c in cap.calls["solve_qp"]])
     torch.cuda.synchronize()
     return errs
@@ -908,12 +928,16 @@ def reading(x, thr):
     return float((x > thr).double().mean()), float(x.median()), float(x.max())
 
 
-def as_accurate(got, want, ref64, scale):
+def as_accurate(got, want, ref64, scale, share_sigmas=0.0):
     """Readings of got (kernel) and want (plain f32) against ref64 (plain
     f64) and of got against want, per scenario over scale, and whether the
-    kernel is as accurate as the plain version under QP_RULE."""
+    kernel is as accurate as the plain version under QP_RULE; with
+    ``share_sigmas`` the share may also exceed the plain version's by that
+    many binomial sigmas, sqrt(2 p (1 - p) / B) (see ILL_SHARE_SIGMAS)."""
     thr, share_add, med_x, max_x, floor = QP_RULE
     k64, p64 = reading(deviation(got, ref64, scale), thr), reading(deviation(want, ref64, scale), thr)
+    share_add = max(share_add, share_sigmas * float(np.sqrt(2 * p64[0] * (1 - p64[0])
+                                                            / got.shape[0])))
     ok = (k64[0] <= p64[0] + share_add and k64[1] <= med_x * p64[1] + floor
           and k64[2] <= max_x * p64[2] + floor)
     return (reading(deviation(got, want, scale), thr), k64, p64), ok
@@ -3086,6 +3110,413 @@ def phase_solver_routes(dev, card) -> dict:
     return {"report": report}
 
 
+# ------------------------------------------------------------ phase 22
+
+
+TRAIN_SCENES = 100  # rendered 270 x 480 scenes of phase 22
+TRAIN_SPHERES = 8  # random spheres per scene, beside a floor
+GT_IMGS, GT_PER_IMG = 50, 2500  # one DfTrainConfig batch: 125,000 points
+GT_CHECK = 2000  # seeded points held against the f64 CPU search
+# an f32 label may differ from the f64 one only where a decision of the
+# check lies within these of its boundary (f32 rounding of ranges up to
+# dmax = 5 m is ~6e-7 m, of a pixel coordinate ~3e-5 px, of an angle ~1e-7)
+F32_MARGIN = {"metres": 1e-5, "pixels": 2e-4, "radians": 1e-5}
+# where the f32 and f64 searches find the same voxel: the value is one
+# voxel distance (the clamp's -0.3 is 1.2e-8 apart in f32), the gradient
+# its unit offset normalized in f32
+GT_VALUE_TOL, GT_GRAD_TOL = 1e-7, 1e-6
+VAE_IMGS, VAE_EPOCHS = 32, 2  # 22b: 2 epochs of 2 steps at batch 16
+DF_EPOCHS = 2  # 22c: 2 epochs of 2 steps (100 images, batch 50)
+CHECK_POINTS = 5000  # 22c's card-vs-f64 step
+# card f32 against CPU f64 on one training forward and backward: loss parts
+# relatively, each parameter's gradient by its relative L2 error, the
+# running statistics against 1 + |value|.  The VAE's gradient bound: cuDNN's
+# f32 sums put them 1.2e-3 to 4.3e-3 from f64 on an H100 (the CPU's f32
+# 2.5-6x nearer, printed beside; 6e-3 on the CPU at 30 x 50), batch norm
+# over 2 images amplifying; a wrong gradient reads O(1).  The NeuralDF's
+# read 1.8e-6.
+TRAIN_LOSS_RTOL, TRAIN_STATS_TOL = 1e-4, 1e-4
+VAE_GRAD_RTOL, DF_GRAD_RTOL = 2e-2, 1e-4
+SERVE_B = 1024  # 22d's cold step
+# 22d: the few-steps-old network leaves kernel 4's stiff-phase iterates
+# ill-determined in f32: kernel and plain version each lie beyond 1e-4 of
+# f64 on 13-34% of the 1024 scenarios and beyond 1e-4 of each other on as
+# many, so whether the kernel's share exceeds the plain version's by
+# QP_RULE's 2% is a coin toss (-0.3% to +2.5% over repeated runs on an H100,
+# whose trained nets differ by cuDNN's nondeterministic sums).  Held there
+# with 3 binomial sigmas of two independent shares allowed on top.
+ILL_SHARE_SIGMAS = 3.0
+
+
+def training_scenes(n, dev):
+    """n seeded scenes: TRAIN_SPHERES spheres in the frustum ahead and a
+    floor 1.2 m below the camera."""
+    from sdf_nmpc_tpu_torch.sim.scenes import Scene
+
+    rng = np.random.default_rng(SEED + 22)
+    return Scene.stack([Scene.make(
+        spheres=[(rng.uniform([1.0, -2.5, -1.0], [5.5, 2.5, 1.0]), rng.uniform(0.2, 0.8))
+                 for _ in range(TRAIN_SPHERES)],
+        boxes=[([-9.0, -9.0, -9.0], [9.0, 9.0, -1.2])], device=dev) for _ in range(n)])
+
+
+class PartTimer:
+    """CUDA events around each named part of a training step; ``ms(name)``
+    the mean over the steps after the first (its cuDNN and allocator warm-up)."""
+
+    def __init__(self):
+        self.events = {}
+
+    def __call__(self, name):
+        import contextlib
+
+        @contextlib.contextmanager
+        def part():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            end.record()
+            self.events.setdefault(name, []).append((start, end))
+
+        return part()
+
+    def ms(self, name):
+        torch.cuda.synchronize()
+        times = [s.elapsed_time(e) for s, e in self.events.get(name, [])]
+        return float(np.mean(times[1:] if len(times) > 1 else times)) if times else 0.0
+
+    def steps(self, name):
+        return len(self.events.get(name, []))
+
+
+def peak_gib(fn):
+    """(fn(), the peak device memory of the call in GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2**30
+
+
+def gt_engine(dev, card, cfg) -> dict:
+    """Phase 22a: the 100 scenes rendered on the card, one DfTrainConfig
+    batch (50 images x 2,500 points) labelled by ColChecker and signed
+    DfComputer (timed, peak memory), a seeded 2,000 of its points held
+    against the f64 CPU search under F32_MARGIN."""
+    from sdf_nmpc_tpu_torch.data import ColChecker, DfComputer, PosSampler
+    from sdf_nmpc_tpu_torch.data.collision import check_image_points_impl
+    from sdf_nmpc_tpu_torch.data.df_computer import sdf_from_search
+    from sdf_nmpc_tpu_torch.sim import render_range_image
+    from sdf_nmpc_tpu_torch.training.df import DfTrainConfig, sample_points
+
+    H, W = (int(v) for v in cfg.sensor.shape_imgs[-2:])
+    hfov, vfov, dmax = float(cfg.sensor.hfov), float(cfg.sensor.vfov), float(cfg.sensor.dmax)
+    scenes = training_scenes(TRAIN_SCENES, dev)
+    render = lambda: render_range_image(scenes, torch.zeros(3, device=dev),
+                                        torch.eye(3, device=dev), H, W, hfov, vfov, dmax)
+    render_ms = cuda_ms(render, reps=1)
+    imgs = render()
+    tcfg = DfTrainConfig(batch_size=GT_IMGS, points_per_img=GT_PER_IMG)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sampler = PosSampler(dmax, hfov, vfov, margin=40, device=dev)
+    batch = imgs[:GT_IMGS]
+    pts = sample_points(gen, sampler, batch, tcfg.point_counts(), tcfg.close_ball_size)
+    cc = ColChecker(dmax, hfov, vfov, 0.0, outside="extrapolate", device=dev)
+    dfc = DfComputer(True, dmax, hfov, vfov, tcfg.max_df, device=dev)
+    p2i = torch.arange(GT_IMGS, device=dev).repeat_interleave(GT_PER_IMG)
+    col_ms = cuda_ms(lambda: cc.check_image_points(batch, pts), reps=3)
+    sdf_ms = cuda_ms(lambda: dfc.get_df(batch, pts), reps=2)
+    (occ, md, am), peak = peak_gib(lambda: dfc.search(batch, pts, p2i))
+    sdf, grad = sdf_from_search(occ, md, am, dfc.grid, dfc.min_df, dfc.max_df)
+    log(f"22a GT engine: {TRAIN_SCENES} scenes rendered at {H} x {W} in {render_ms:.1f} ms; one "
+        f"batch of {GT_IMGS} images x {GT_PER_IMG} points ({pts.shape[0]} points, K = "
+        f"{dfc.grid.shape[0]} offsets, chunks of {dfc.batch_size}): ColChecker {col_ms:.3f} ms, "
+        f"signed DfComputer {sdf_ms:.1f} ms, peak {peak:.2f} GiB; {int(occ.sum())} occupied, "
+        f"{int((sdf == tcfg.max_df).sum())} saturated at max_df; card {card}")
+
+    # the f64 CPU search on a seeded subset
+    sel = torch.as_tensor(np.sort(np.random.default_rng(SEED).choice(
+        pts.shape[0], GT_CHECK, replace=False)), device=dev)
+    cpu = torch.device("cpu")
+    imgs64, pts64, p2i64 = batch.double().cpu(), pts[sel].double().cpu(), p2i[sel].cpu()
+    dfc64 = DfComputer(True, dmax, hfov, vfov, tcfg.max_df, device=cpu, dtype=torch.float64)
+    t0 = time.perf_counter()
+    occ64, md64, am64 = dfc64.search(imgs64, pts64, p2i64)
+    cpu_s = time.perf_counter() - t0
+    sdf64, grad64 = sdf_from_search(occ64, md64, am64, dfc64.grid, dfc64.min_df, dfc64.max_df)
+    geo = dict(dfc64.colcheck.geometry)
+
+    def near_boundary(points, idx):
+        m = ColChecker(dmax, hfov, vfov, 0.0, outside="extrapolate", device=cpu,
+                       dtype=torch.float64).label_margins(imgs64, points, idx)
+        return (m["metres"] <= F32_MARGIN["metres"]) | (m["pixels"] <= F32_MARGIN["pixels"]) | (
+            m["radians"] <= F32_MARGIN["radians"])
+
+    occ32, am32 = occ[sel].cpu(), am[sel].cpu()
+    flip = occ32 != occ64
+    bad_flip = int((flip & ~near_boundary(pts64, p2i64)).sum())
+    same = ~flip & (am32 == am64)
+    moved = torch.nonzero(~flip & (am32 != am64)).flatten()
+    unexplained = 0
+    grid64, grid32 = dfc64.grid, dfc.grid
+    for i in moved.tolist():  # a voxel's label flipped: each flip within the margin
+        vox64 = pts64[i] + grid64
+        lab64 = check_image_points_impl(imgs64, vox64, p2i64[i], **geo)
+        lab32 = check_image_points_impl(batch, pts[sel[i]] + grid32, p2i[sel[i]],
+                                        **dict(dfc.colcheck.geometry)).cpu()
+        differ = lab64 != lab32
+        if not differ.any() or not bool(near_boundary(vox64[differ], p2i64[i]).all()):
+            unexplained += 1
+    dv = float((sdf[sel].cpu().double() - sdf64)[same].abs().max())
+    dg = float((grad[sel].cpu().double() - grad64)[same].abs().max())
+    report = {"points": int(pts.shape[0]), "render_ms_100": render_ms, "colcheck_ms": col_ms,
+              "sdf_ms": sdf_ms, "peak_gib": peak, "checked": GT_CHECK,
+              "label_flips": int(flip.sum()), "voxel_flips": int(moved.numel()),
+              "value_err": dv, "grad_err": dg, "cpu_f64_s": cpu_s}
+    log(f"22a GT engine vs the f64 CPU search on {GT_CHECK} seeded points ({cpu_s:.1f} s): "
+        f"rule: a label may differ only where a decision lies within {F32_MARGIN} of its "
+        f"boundary; {int(flip.sum())} point labels differ ({bad_flip} beyond the rule), "
+        f"{moved.numel()} points find another voxel ({unexplained} without a voxel label "
+        f"flip within the rule); on the other {int(same.sum())}: value max |d| {dv:.2e} (tol "
+        f"{GT_VALUE_TOL}), gradient {dg:.2e} (tol {GT_GRAD_TOL}); card {card}")
+    if bad_flip or unexplained or not (dv <= GT_VALUE_TOL and dg <= GT_GRAD_TOL):
+        raise AssertionError("22a: the card's GT labels disagree with the f64 search")
+    return imgs, report
+
+
+def held_train_step(label, card, out, grad_rtol) -> dict:
+    """One training forward and backward on the card against f64 on the
+    CPU (``out``: 'card', 'f32' (the CPU in f32) and 'f64', each (loss
+    parts, gradients by name, running statistics by name)): loss parts
+    within TRAIN_LOSS_RTOL, each gradient's relative L2 error within
+    ``grad_rtol`` (the CPU f32 one's printed beside), running statistics
+    within TRAIN_STATS_TOL (1 + |v|)."""
+    (l32, g32, s32), (_, gf, _), (l64, g64, s64) = out["card"], out["f32"], out["f64"]
+    lerr = max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-30) for a, b in zip(l32, l64))
+    rel = lambda g, name: float((g[name].double().cpu() - g64[name]).norm()) / max(
+        float(g64[name].norm()), 1e-30)
+    worst = max(((rel(g32, n), rel(gf, n), n) for n in g64))
+    serr = max([float(((s32[n].double().cpu() - v).abs() / (1 + v.abs())).max())
+                for n, v in s64.items()] or [0.0])
+    log(f"{label}: card f32 vs CPU f64, one forward and backward: loss parts rel {lerr:.2e} "
+        f"(tol {TRAIN_LOSS_RTOL}); gradients' relative L2 error per tensor, worst {worst[2]}: "
+        f"card {worst[0]:.2e} (tol {grad_rtol}), CPU f32 {worst[1]:.2e}; "
+        + (f"running statistics {serr:.2e} of 1 + |v| (tol {TRAIN_STATS_TOL}); " if s64 else "")
+        + f"card {card}")
+    if not (lerr <= TRAIN_LOSS_RTOL and worst[0] <= grad_rtol and serr <= TRAIN_STATS_TOL):
+        raise AssertionError(f"{label}: the card's training step disagrees with f64")
+    return {"loss_rel_err": lerr, "grad_worst": worst[2], "grad_l2_rel_err": worst[0],
+            "grad_l2_rel_err_cpu_f32": worst[1], "stats_err": serr if s64 else None}
+
+
+def train_vae_on_card(dev, card, imgs, workdir) -> tuple:
+    """Phase 22b: train_vae at the reference's sizes (latent 128, 270 x 480,
+    batch norm, dropout 0.1, batch 16) with the VAE augmenter and the
+    erosion label map, over VAE_IMGS rendered images in memory: VAE_EPOCHS
+    epochs, then a resume from epoch 0's checkpoint; then one step held
+    against f64 on the CPU (batch 2, dropout and augmentation off).
+    Returns (the trained Vae, report)."""
+    import copy
+
+    from sdf_nmpc_tpu_torch.data.augment import ImageAugmenter
+    from sdf_nmpc_tpu_torch.data.h5 import ImageDataset
+    from sdf_nmpc_tpu_torch.nn import Dropout
+    from sdf_nmpc_tpu_torch.perception.preprocessing import disk_kernel, erode
+    from sdf_nmpc_tpu_torch.training import VaeTrainConfig, train_vae
+    from sdf_nmpc_tpu_torch.training.vae import vae_losses
+
+    H, W = imgs.shape[-2:]
+    data = imgs[:VAE_IMGS, None]
+    kernel = disk_kernel(10)
+    ds = ImageDataset(data, range(VAE_IMGS), lambda x: x,
+                      ImageAugmenter((1, H, W), noise=True, flip=True, translate=True, rotate=True,
+                                     erase=True, outlier_rm=True),
+                      lambda img: erode(img, kernel, ignore_zeros=True), seed=SEED, device=dev)
+    meta = {"shape_imgs": [1, H, W]}
+    vcfg = VaeTrainConfig(nb_epochs=VAE_EPOCHS)
+    timer = PartTimer()
+    (vae, hist), peak = peak_gib(lambda: train_vae(ds, None, meta, workdir, cfg=vcfg,
+                                                   log_fn=log, device=dev, timer=timer))
+    step_ms = timer.ms("step")
+    n_steps = timer.steps("step")
+    (_, hist2) = train_vae(ds, None, meta, workdir, cfg=vcfg, restart_from_epoch=1,
+                           log_fn=log, device=dev)
+    if not (hist2[0]["epoch"] == 1 and hist2[0]["lr"] == float(vcfg.lr_at_epoch(1))
+            and all(np.isfinite(h["train"]).all() for h in hist + hist2)):
+        raise AssertionError("22b: train_vae's resume or losses are off")
+    log(f"22b VAE: train_vae at latent {vcfg.size_latent}, {H} x {W}, batch norm, dropout "
+        f"{vcfg.dropout_rate}, batch {vcfg.batch_size}, augmenter and erosion labels on, "
+        f"{VAE_IMGS} images: {n_steps} steps in {VAE_EPOCHS} epochs, {step_ms:.1f} ms per step "
+        f"after the first ({vcfg.batch_size / step_ms * 1e3:.1f} images/s), peak {peak:.2f} GiB; "
+        f"losses by epoch {[h['train'] for h in hist]}, resumed at epoch {hist2[0]['epoch']} "
+        f"(lr {hist2[0]['lr']:.3e}) {hist2[0]['train']}; card {card}")
+
+    # one step, card f32 against CPU f64: same parameters, images and eps
+    x = imgs[VAE_IMGS:VAE_IMGS + 2, None]
+    eps = torch.randn((2, vcfg.size_latent), generator=torch.Generator().manual_seed(SEED),
+                      dtype=torch.float64)
+    out = {}
+    for key, device, dtype in (("card", dev, torch.float32), ("f32", torch.device("cpu"),
+                                                               torch.float32),
+                               ("f64", torch.device("cpu"), torch.float64)):
+        m = copy.deepcopy(vae).to(device=device, dtype=dtype)
+        for mod in m.modules():
+            if isinstance(mod, Dropout):
+                mod.rate = 0.0
+        m.train()
+        xi = x.to(device=device, dtype=dtype)
+        _, l_reg, l_kld = vae_losses(m, xi, xi, vcfg, eps=eps.to(device=device, dtype=dtype))
+        (l_reg + l_kld).backward()
+        out[key] = ((l_reg.detach(), l_kld.detach()),
+                    {n: p.grad for n, p in m.named_parameters()},
+                    {n: b for n, b in m.named_buffers() if "running" in n})
+    check = held_train_step("22b VAE step", card, out, VAE_GRAD_RTOL)
+    return vae, {"step_ms": step_ms, "images_per_s": vcfg.batch_size / step_ms * 1e3,
+                 "steps": n_steps, "peak_gib": peak, "history": hist, "resumed": hist2,
+                 "check": check}
+
+
+def train_df_on_card(dev, card, cfg, imgs, encoder, workdir) -> tuple:
+    """Phase 22c: train_df at the reference's sizes (4 x 256, latent 128,
+    res full, embed oct, sin w0 20, dropout 0.1, batch 50 x 2,500 points,
+    weights (50, 0, 1/60, 5)) against 22b's frozen encoder over the 100
+    images: DF_EPOCHS epochs, then a resume; each step timed by part; then
+    one step on CHECK_POINTS points, dropout off, against f64 on the CPU.
+    Returns (the trained NeuralDF, report)."""
+    import copy
+
+    from sdf_nmpc_tpu_torch.data import DfComputer, PosSampler
+    from sdf_nmpc_tpu_torch.data.augment import ImageAugmenter
+    from sdf_nmpc_tpu_torch.data.h5 import ImageDataset
+    from sdf_nmpc_tpu_torch.training import DfTrainConfig, train_df
+    from sdf_nmpc_tpu_torch.training.df import df_loss, encode_latents, sample_points
+
+    H, W = imgs.shape[-2:]
+    hfov, vfov = float(cfg.sensor.hfov), float(cfg.sensor.vfov)
+    ds = ImageDataset(imgs[:, None], range(imgs.shape[0]), lambda x: x,
+                      ImageAugmenter((1, H, W), noise=True, flip=True, translate=True,
+                                     erase=True), seed=SEED, device=dev)
+    meta = {"hfov": hfov, "vfov": vfov, "is_depth": False, "is_spherical": False,
+            "shape_imgs": [1, H, W]}
+    dcfg = DfTrainConfig(nb_epochs=DF_EPOCHS)
+    nn_kw = {"layer_sizes": (256, 256, 256, 256)}
+    timer = PartTimer()
+    (net, hist), peak = peak_gib(lambda: train_df(ds, None, meta, encoder, workdir, cfg=dcfg,
+                                                  nn_kwargs=nn_kw, log_fn=log, device=dev,
+                                                  timer=timer))
+    parts = {k: timer.ms(k) for k in ("encode", "sampling", "gt", "loss", "update")}
+    _, hist2 = train_df(ds, None, meta, encoder, workdir, cfg=dcfg, nn_kwargs=nn_kw,
+                        restart_from_epoch=1, log_fn=log, device=dev)
+    if not (hist2[0]["epoch"] == 1 and hist2[0]["lr"] == float(dcfg.lr_at_epoch(1))
+            and all(np.isfinite(h["train"]).all() for h in hist + hist2)):
+        raise AssertionError("22c: train_df's resume or losses are off")
+    log(f"22c NeuralDF: train_df at 4 x 256, latent 128, res full, embed oct, sin w0 20, "
+        f"dropout 0.1, batch {dcfg.batch_size} x {dcfg.points_per_img} points, weights "
+        f"{tuple(round(w, 4) for w in dcfg.loss_weights)}, {imgs.shape[0]} images: "
+        f"{timer.steps('loss')} steps, ms per step after the first by part {parts} (sum "
+        f"{sum(parts.values()):.1f}), peak {peak:.2f} GiB; losses by epoch "
+        f"{[h['train'] for h in hist]}, resumed at epoch {hist2[0]['epoch']} "
+        f"{hist2[0]['train']}; card {card}")
+
+    # one step on CHECK_POINTS points of two images, dropout off, against f64
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    two = imgs[:2]
+    sampler = PosSampler(dcfg.dmax, hfov, vfov, margin=40, device=dev)
+    states = sample_points(gen, sampler, two, dcfg.point_counts(), dcfg.close_ball_size)
+    latents = encode_latents(encoder, two[:, None], dcfg.points_per_img, gen)
+    gt, ggt = DfComputer(True, dcfg.dmax, hfov, vfov, 1.0, device=dev).get_df(two, states)
+    out = {}
+    for key, device, dtype in (("card", dev, torch.float32), ("f32", torch.device("cpu"),
+                                                               torch.float32),
+                               ("f64", torch.device("cpu"), torch.float64)):
+        m = copy.deepcopy(net).to(device=device, dtype=dtype).train()
+        m.dropout_rate = 0.0
+        args = [t[:CHECK_POINTS].to(device=device, dtype=dtype) for t in (states, latents, gt, ggt)]
+        total, lparts = df_loss(m, *args, dcfg.loss_weights)
+        total.backward()
+        out[key] = (lparts.detach(), {n: p.grad for n, p in m.named_parameters()}, {})
+    check = held_train_step("22c NeuralDF step", card, out, DF_GRAD_RTOL)
+    return net, {"ms_by_part": parts, "steps": timer.steps("loss"), "peak_gib": peak,
+                 "history": hist, "resumed": hist2, "check": check}
+
+
+def train_to_serve(dev, card, net, encoder, imgs, part, peaks) -> tuple:
+    """Phase 22d: 22c's network packed for kernel 2 and held by its f32x3
+    and f32 routes against their plain versions on one cold step's inputs;
+    that cold config-4 att step at SERVE_B on 22b's encoder latents of the
+    first 32 images, kernels 1-4 held on every launch (kernel 4's iterates
+    as accurate as the plain version against f64, ILL_FIELDS); statuses
+    finite and OK (no u0 gate: the network is a few steps old).  Returns
+    (rows, report)."""
+    from sdf_nmpc_tpu_torch.config import default_config
+    from sdf_nmpc_tpu_torch.ocp import build_ocp
+    from sdf_nmpc_tpu_torch.ops import _lib
+    from sdf_nmpc_tpu_torch.params import ParamLayout
+    from sdf_nmpc_tpu_torch.solver import init_state, make_rti_step
+
+    cfg = default_config().replace(nn=dict(size_latent=net.size_latent))
+    ocp = build_ocp(cfg, sdf=net, sdf_max_df=1.0, device=dev)
+    layout = ParamLayout.from_cfg(cfg)
+    with torch.no_grad():
+        lat = encoder(imgs[:32, None]).double().cpu().numpy()
+    inputs = tiled_inputs(ocp, cfg, layout, lat, SERVE_B, SEED, dev)
+    used = ["lin_y_sens", "sdf_fused_x3", "condense", "ip_phase"]
+    _lib.reset_launch_counts()
+    with Capture() as cap:
+        res = make_rti_step(ocp, cfg, budget="cold", with_evals=False)(
+            init_state(ocp, inputs.x0), inputs)
+    counts = dict(_lib.launch_counts)
+    launched_only("22d train -> serve", counts, used)
+    n_ok = int((res.status == 0).sum())
+    finite = bool(torch.isfinite(res.state.X).all() and torch.isfinite(res.u0).all())
+    log(f"22d train -> serve: the trained network packed for kernel 2 (res full, 4 x 256); one "
+        f"cold att step at B={SERVE_B} on 22b's latents: {n_ok}/{SERVE_B} status OK, outputs "
+        f"{'finite' if finite else 'NOT finite'}, |u0| max {float(res.u0.abs().max()):.3f}; "
+        f"card {card}")
+    if n_ok != SERVE_B or not finite:
+        raise AssertionError("22d: the trained network's step is not finite and OK")
+    # the few-steps-old network's rows leave the IP iterates ill-conditioned:
+    # those fields held as accurate as the plain version against f64, as
+    # recfeas's (ILL_FIELDS), the share by ILL_SHARE_SIGMAS
+    errs = check_all(cap, "train -> serve", as_plain=ILL_FIELDS, sdf_route="sdf_fused_x3",
+                     share_sigmas=ILL_SHARE_SIGMAS)
+    errs["sdf_fused"] = max(check_sdf(a, "sdf_fused") for a in cap.args("sdf"))
+    calls = {name: cap.args("sdf" if name == "sdf_fused_x3" else name) for name in used}
+    log(f"kernel numbers, train -> serve: the launches of that cold step, B={SERVE_B}")
+    rows = kernel_rows({k: fused_runs()[k] for k in used}, calls, counts, errs, peaks, part,
+                       {"sdf_fused_x3": (3.0, TF32_PEAKS[part])})
+    return rows, {"n_ok": n_ok, "errs": errs}
+
+
+def phase_training(dev, card) -> dict:
+    """Phase 22, the training side (``--training`` runs phases 1, 2 and
+    this one alone): 22a the GT data engine at 125,000 points, 22b the VAE
+    and 22c the NeuralDF trained at the reference's sizes with resume, 22d
+    the trained network served through kernels 1-4.  Returns the kernels'
+    per-path rows and the report."""
+    import tempfile
+
+    from sdf_nmpc_tpu_torch.config import default_config
+
+    t0 = time.perf_counter()
+    part, peaks = card_peaks(card.split(",")[0])
+    cfg = default_config()
+    report = {}
+    imgs, report["gt"] = gt_engine(dev, card, cfg)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_training_") as tmp:
+        vae, report["vae"] = train_vae_on_card(dev, card, imgs, f"{tmp}/vae")
+        encoder = vae.encoder.eval()
+        net, report["df"] = train_df_on_card(dev, card, cfg, imgs, encoder, f"{tmp}/sdf")
+    rows, report["serve"] = train_to_serve(dev, card, net, encoder, imgs, part, peaks)
+    per_path = {row["name"]: {f"training: train -> serve, cold, B={SERVE_B}": row}
+                for row in rows}
+    report["wall_s"] = time.perf_counter() - t0
+    log(f"phase 22 (training side): {report['wall_s']:.1f} s wall; card {card}")
+    log(json.dumps({"training": report}, default=float))
+    return {"per_path": per_path, "report": report}
+
+
 # source -> (its C functions, the kernels timed, the models whose steady
 # step gives the launches) for --ip-builds, --sdf-builds (kernel 2's three
 # sources), --qp-builds, --condense-builds, --lin-builds and --erk4-builds; a
@@ -3346,6 +3777,8 @@ def main(argv=None) -> int:
                     help="run only the closed loop (phase 20), then stop")
     ap.add_argument("--solver-routes", action="store_true",
                     help="run only the solver routes (phase 21), then stop")
+    ap.add_argument("--training", action="store_true",
+                    help="run only the training side (phase 22), then stop")
     args = ap.parse_args(argv)
     card = phase_card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3370,7 +3803,8 @@ def main(argv=None) -> int:
         return 0
     for flag, phase in ((args.long_horizon, phase_long_horizon),
                         (args.closed_loop, phase_closed_loop),
-                        (args.solver_routes, phase_solver_routes)):
+                        (args.solver_routes, phase_solver_routes),
+                        (args.training, phase_training)):
         if flag:
             phase(dev, card)
             return 0
@@ -3411,6 +3845,7 @@ def main(argv=None) -> int:
     long_horizon = phase_long_horizon(dev, card)
     closed_loop = phase_closed_loop(dev, card)
     phase_solver_routes(dev, card)
+    training = phase_training(dev, card)
     for i, row in enumerate(rows):  # kernels 1 and 3: att's numbers, every model's beside
         if row["name"] in ("lin_y_sens", "condense"):
             rows[i] = kernel_row_per_model({"att": row, **per_kernel[row["name"]]}, "att")
@@ -3418,7 +3853,7 @@ def main(argv=None) -> int:
     rows.append(kernel_row_per_model({**extras["erk4_sens"], **per_kernel["erk4_sens"]}, "att"))
     for row in rows:  # the formulation extras' and config 3's readings of kernels 1-8
         for per_path in (extras["per_path"], perception["per_path"], long_horizon["per_path"],
-                         closed_loop["per_path"]):
+                         closed_loop["per_path"], training["per_path"]):
             if row["name"] in per_path:
                 row.setdefault("per_path", {}).update(per_path[row["name"]])
     print(json.dumps({"kernels": rows}), flush=True)

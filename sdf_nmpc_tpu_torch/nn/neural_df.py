@@ -3,8 +3,10 @@
 Input ``[pos(3) | latent]``; positional embedding on the position; two hidden
 blocks ('main1', 'main2') with a mid-network residual re-concatenation of the
 embeddings and/or latent ('res' mode full/state/latent/none); scalar df head.
-Activations: sine (SIREN, w0), relu, softplus.  Layer names follow the flax
-module, so ``nn/weights.py`` carries trained parameters across by name.
+Activations: sine (SIREN, w0), relu, softplus; in training mode, dropout
+(``dropout_rate``, flax's: scaled by 1 / keep) after each hidden activation.
+Layer names follow the flax module, so ``nn/weights.py`` carries trained
+parameters across by name.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from torch import nn
 
 from .activation import sine
+from .dropout import dropout
 from .embeddings import embedding_for
 
 
@@ -32,6 +35,7 @@ class NeuralDF(nn.Module):
         act: str = "sin",
         layer_sizes: Sequence[int] = (256, 256, 256, 256),
         nb_freqs: int = 5,
+        dropout_rate: float = 0.0,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -49,6 +53,7 @@ class NeuralDF(nn.Module):
         self.act = act
         self.layer_sizes = tuple(int(s) for s in layer_sizes)
         self.nb_freqs = nb_freqs
+        self.dropout_rate = float(dropout_rate)
         self.embed_fn, self.nb_embeddings = embedding_for(embed, nb_freqs)
 
         ls = self.layer_sizes
@@ -83,18 +88,33 @@ class NeuralDF(nn.Module):
             return torch.relu(z)
         return nn.functional.softplus(z)
 
-    def forward(self, x):
-        """x: (..., 3 + size_latent) -> (..., 1) truncated distance."""
+    def forward(self, x, generator: Optional[torch.Generator] = None, shared_mask: bool = False):
+        """x: (..., 3 + size_latent) -> (..., 1) truncated distance.
+
+        In training mode with ``dropout_rate`` > 0 each hidden activation is
+        dropped with masks drawn from ``generator``: one per row, or with
+        ``shared_mask`` one (1, width) mask per layer shared by every row
+        (what the JAX package's input gradient, a vmap of ``jax.grad`` under
+        one unbatched dropout key, draws)."""
+        drop = self.training and self.dropout_rate > 0.0
+
+        def act(z):
+            h = self._act(z)
+            if not drop:
+                return h
+            shape = (1,) * (h.dim() - 1) + h.shape[-1:] if shared_mask else None
+            return dropout(h, self.dropout_rate, generator, shape)
+
         state = x[..., :3]
         latent = x[..., 3:]
         emb = self.embed_fn(state) if self.embed_fn is not None else state
         h = torch.cat([emb, latent], dim=-1)
-        h = self._act(self.main1_0(h))
-        h = self._act(self.main1_1(h))
+        h = act(self.main1_0(h))
+        h = act(self.main1_1(h))
         if self.res in ("full", "state"):
             h = torch.cat([h, emb], dim=-1)
         if self.res in ("full", "latent"):
             h = torch.cat([h, latent], dim=-1)
-        h = self._act(self.main2_0(h))
-        h = self._act(self.main2_1(h))
+        h = act(self.main2_0(h))
+        h = act(self.main2_1(h))
         return self.df(h)

@@ -4,11 +4,14 @@ Counterpart of sdf_nmpc_tpu/nn/resnet.py: standard (3x3, 3x3) or bottleneck
 (1x1, 3x3, 1x1) blocks; ``stride`` doubles (``ResBlock``) or halves
 (``ResBlockDeconv``) the channel count and down/up-samples space; the
 shortcut is a strided 1x1 (de)convolution when stride != 1; optional batch
-norm (the convolutions then have no bias, BatchNorm's epsilon 1e-5 as
-flax's) and terminal dropout.  The sub-modules carry the flax names
-(``Conv_0``, ``BatchNorm_1``, ``ConvTransposeTorch_2``, ...), numbered in
-the order flax creates them, so ``weights.encoder_from_jax`` and
-``decoder_from_jax`` carry a flax tree across by name.
+norm (the convolutions then have no bias; ``BatchNorm`` is flax's: epsilon
+1e-5, and in training mode the running statistics move by 0.01 toward the
+batch's mean and **biased** variance, where torch's own moves by 0.1 toward
+the unbiased one) and terminal dropout (``dropout.Dropout``, flax's).  The
+sub-modules carry the flax names (``Conv_0``, ``BatchNorm_1``,
+``ConvTransposeTorch_2``, ...), numbered in the order flax creates them, so
+``weights.encoder_from_jax`` and ``decoder_from_jax`` carry a flax tree
+across by name.
 
 flax's 1x1 strided convolution pads 'SAME', which for a 1x1 kernel is no
 padding at every size, odd or even: torch's padding 0.
@@ -23,7 +26,34 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .dropout import Dropout
+
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.99  # flax's: running = 0.99 running + (1 - 0.99) batch
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """flax's ``nn.BatchNorm`` over NCHW channels.  Eval mode is
+    ``nn.BatchNorm2d``'s (the running statistics).  Training mode
+    normalizes with the batch's mean and biased variance, as both do, and
+    updates the running statistics as flax does: ``r = 0.99 r + (1 - 0.99)
+    b`` with the biased batch variance (torch's own: momentum 0.1, the
+    unbiased variance)."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=BN_EPS)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            mean = x.mean((0, 2, 3))
+            var = x.var((0, 2, 3), correction=0)
+            self.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
+            self.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
+            self.num_batches_tracked.add_(1)
+        return y
 
 
 def init_from(module: nn.Module, generator: Optional[torch.Generator]):
@@ -60,14 +90,14 @@ class _Block(nn.Module):
     def __init__(self, use_batchnorm: bool, dropout_rate: float):
         super().__init__()
         self.use_batchnorm = bool(use_batchnorm)
-        self.dropout = nn.Dropout(dropout_rate) if dropout_rate else None
+        self.dropout = Dropout(dropout_rate) if dropout_rate else None
         self._n_bn = 0
 
     def _bn(self, channels: int):
         """The next BatchNorm_i (flax numbers them in call order), or None."""
         if not self.use_batchnorm:
             return None
-        bn = nn.BatchNorm2d(channels, eps=BN_EPS)
+        bn = BatchNorm(channels)
         setattr(self, f"BatchNorm_{self._n_bn}", bn)
         self._n_bn += 1
         return bn

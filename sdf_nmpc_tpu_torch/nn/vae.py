@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .dropout import Dropout
 from .resnet import ConvTransposeTorch, ResBlock, ResBlockDeconv, init_from
 
 ENC_CHANNELS = (64, 128, 256, 512)
@@ -49,7 +50,7 @@ class Encoder(nn.Module):
             setattr(self, f"ResBlock_{i}", ResBlock(
                 ch, stride, use_batchnorm=batchnorm,
                 dropout_rate=dropout_rate if stride != 1 else 0.0))
-        self.dropout = nn.Dropout(dropout_rate) if dropout_rate else None
+        self.dropout = Dropout(dropout_rate) if dropout_rate else None
         feats = ENC_CHANNELS[-1] * ENC_STRIDES[-1] * 4  # a 2 x 2 pooled map
         self.mean = nn.Linear(feats, size_latent)
         self.logvar = nn.Linear(feats, size_latent)
@@ -98,7 +99,7 @@ class Decoder(nn.Module):
         self.unflatten_hw = tuple(int(s) for s in unflatten_hw)
         uh, uw = self.unflatten_hw
         self.Dense_0 = nn.Linear(size_latent, 512 * uh * uw)
-        self.dropout = nn.Dropout(dropout_rate) if dropout_rate else None
+        self.dropout = Dropout(dropout_rate) if dropout_rate else None
         for i, ch in enumerate(DEC_CHANNELS):
             setattr(self, f"ResBlockDeconv_{i}", ResBlockDeconv(
                 ch, 2, use_batchnorm=batchnorm, dropout_rate=dropout_rate, output_padding=1))

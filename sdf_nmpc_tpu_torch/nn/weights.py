@@ -13,7 +13,8 @@ the same for the VAE (``nn/vae.py``): convolution kernels HWIO -> OIHW, the
 transposed convolutions' flipped (kh, kw, in, out) kernels -> torch's
 unflipped (in, out, kh, kw), BatchNorm scale / bias / batch_stats -> weight
 / bias / running statistics, and the head rows from flax's (h, w, c) flatten
-order to torch's (c, h, w).
+order to torch's (c, h, w); ``vae_from_jax`` the whole Vae.
+``opt_state_from_jax`` carries optax's AdamW state across to torch's.
 """
 
 from __future__ import annotations
@@ -249,6 +250,45 @@ def decoder_from_jax(variables, unflatten_hw=(8, 15)) -> dict:
     """``Decoder`` state dict from a flax Decoder tree of numpy arrays; its
     first Dense layer feeds a 512 x unflatten_hw map."""
     return vae_state_from_jax(variables, ("Dense_0",), "out", (512, *unflatten_hw))
+
+
+def vae_from_jax(variables, unflatten_hw=(8, 15)) -> dict:
+    """``Vae`` state dict from a flax Vae tree of numpy arrays (``params``
+    with 'encoder' and 'decoder', and their ``batch_stats``)."""
+    state = {}
+    for part, convert in (("encoder", encoder_from_jax),
+                          ("decoder", lambda v: decoder_from_jax(v, unflatten_hw))):
+        sub = {k: variables[k][part] for k in ("params", "batch_stats") if k in variables}
+        state.update({f"{part}.{k}": v for k, v in convert(sub).items()})
+    return state
+
+
+def opt_state_from_jax(optimizer, module, opt_state, to_state):
+    """Carry optax's ``inject_hyperparams(adamw)`` state into a torch AdamW
+    over ``module``'s parameters, in place.  ``opt_state`` is that state as
+    a tree of numpy leaves (flax's state dict: ``hyperparams`` and
+    ``inner_state``, whose first entry holds Adam's ``count``, ``mu`` and
+    ``nu``); ``to_state`` maps a flax parameter tree to the module's state
+    dict (``params_from_jax``, ``vae_from_jax``).  mu and nu cross as the
+    parameters do (transposes, flips and row permutations commute with
+    Adam's elementwise update); count becomes every parameter's ``step``,
+    and the learning rate, weight decay, betas and eps the groups'."""
+    adam = opt_state["inner_state"]["0"]
+    step = float(np.asarray(adam["count"]))
+    mu, nu = to_state(adam["mu"]), to_state(adam["nu"])
+    hyper = {k: float(np.asarray(v)) for k, v in opt_state["hyperparams"].items()}
+    for group in optimizer.param_groups:
+        group["lr"] = hyper["learning_rate"]
+        group["weight_decay"] = hyper.get("weight_decay", group["weight_decay"])
+        group["betas"] = (hyper.get("b1", group["betas"][0]), hyper.get("b2", group["betas"][1]))
+        group["eps"] = hyper.get("eps", group["eps"])
+    for name, p in module.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": mu[name].to(dtype=p.dtype, device=p.device).clone(),
+            "exp_avg_sq": nu[name].to(dtype=p.dtype, device=p.device).clone(),
+        }
+    return optimizer
 
 
 def load_prod_encoder(weights_dir=None, expect_img=None, strict=False, device="cuda"):

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..data.points import pixel_grid
+from ..data.points import unit_rays
 
 
 class Scene(NamedTuple):
@@ -57,19 +57,6 @@ class Scene(NamedTuple):
 
 def _norm(x):
     return torch.sqrt((x * x).sum(-1))
-
-
-def unit_rays(height, width, hfov, vfov, is_spherical=False) -> np.ndarray:
-    """(3, H*W) float32 unit pixel rays.  Each norm is summed as two fused
-    multiply-adds, fma(z, z, fma(y, y, x*x)), each rounded once to float32
-    (products exact in float64), which is how the JAX package's f32 norm
-    runs on the CPU where the config-3 oracle was made: any other order
-    moves a ray by an f32 ulp and the oracle's image by 1e-7."""
-    rays = pixel_grid(height, width, hfov, vfov, is_spherical).reshape(3, -1)
-    x, y, z = rays.astype(np.float64)
-    f32 = lambda a: a.astype(np.float32).astype(np.float64)
-    sq = f32(z * z + f32(y * y + f32(x * x)))
-    return rays / np.sqrt(sq.astype(np.float32))
 
 
 def scene_sdf(scene: Scene, p):

@@ -1124,3 +1124,82 @@ def test_closed_loop_ticks_on_card_match_the_cpu(cuda_device):
         out.append(res.xs.cpu())
     print(f"xs card vs CPU: {float((out[0] - out[1]).abs().max()):.3e}")
     torch.testing.assert_close(out[0], out[1], atol=1e-3, rtol=0)
+
+
+@pytest.mark.gpu
+def test_df_computer_on_card_matches_cpu_plain(cuda_device):
+    """The signed DfComputer on the card (f32) against its CPU f64 plain
+    path on 4 rendered 270 x 480 scenes x 500 points.  Rule: a point's label
+    may differ only where a decision of the check lies within 1e-5 m, 2e-4
+    px or 1e-5 rad of its boundary; where the labels and the nearest voxel
+    agree, the value within 1e-7 (the clamp's -0.3 in f32) and the gradient
+    within 1e-6; another nearest voxel (a voxel label's f32 flip) on at most
+    1% of the points."""
+    from sdf_nmpc_tpu_torch.data import ColChecker, DfComputer, PosSampler
+    from sdf_nmpc_tpu_torch.data.df_computer import sdf_from_search
+    from sdf_nmpc_tpu_torch.sim.scenes import Scene, render_range_image
+    from sdf_nmpc_tpu_torch.training.df import DfTrainConfig, sample_points
+
+    hfov, vfov, dmax = 0.7592, 0.4903, 5.0
+    rng = np.random.default_rng(3)
+    scenes = Scene.stack([Scene.make(
+        spheres=[(rng.uniform([1.0, -2.5, -1.0], [5.5, 2.5, 1.0]), rng.uniform(0.2, 0.8))
+                 for _ in range(8)], boxes=[([-9, -9, -9], [9, 9, -1.2])], device=cuda_device)
+        for _ in range(4)])
+    imgs = render_range_image(scenes, torch.zeros(3, device=cuda_device),
+                              torch.eye(3, device=cuda_device), 270, 480, hfov, vfov, dmax)
+    counts = DfTrainConfig(points_per_img=500).point_counts()
+    pts = sample_points(torch.Generator(device=cuda_device).manual_seed(0),
+                        PosSampler(dmax, hfov, vfov, margin=40, device=cuda_device), imgs,
+                        counts, 0.75)
+    p2i = torch.arange(4, device=cuda_device).repeat_interleave(500)
+    card = DfComputer(True, dmax, hfov, vfov, 1.0, batch_size=700, device=cuda_device)
+    occ, md, am = card.search(imgs, pts, p2i)
+    cpu = torch.device("cpu")
+    imgs64, pts64, p2i64 = imgs.double().cpu(), pts.double().cpu(), p2i.cpu()
+    ref = DfComputer(True, dmax, hfov, vfov, 1.0, device=cpu, dtype=torch.float64)
+    occ64, md64, am64 = ref.search(imgs64, pts64, p2i64)
+    m = ColChecker(dmax, hfov, vfov, 0.0, outside="extrapolate", device=cpu,
+                   dtype=torch.float64).label_margins(imgs64, pts64, p2i64)
+    near = (m["metres"] <= 1e-5) | (m["pixels"] <= 2e-4) | (m["radians"] <= 1e-5)
+    flip = occ.cpu() != occ64
+    assert not (flip & ~near).any()
+    same = ~flip & (am.cpu() == am64)
+    assert int((~flip & ~same).sum()) <= 0.01 * len(pts)
+    sdf, grad = sdf_from_search(occ, md, am, card.grid, card.min_df, card.max_df)
+    sdf64, grad64 = sdf_from_search(occ64, md64, am64, ref.grid, ref.min_df, ref.max_df)
+    assert float((sdf.cpu().double() - sdf64)[same].abs().max()) <= 1e-7
+    assert float((grad.cpu().double() - grad64)[same].abs().max()) <= 1e-6
+    assert 0 < int(occ64.sum()) < len(pts)
+
+
+@pytest.mark.gpu
+def test_loss_sdf_backward_on_card_matches_f64(cuda_device):
+    """One loss_sdf forward and double backward of a 4 x 64 sine NeuralDF
+    (w0 20, latent 16) on 2,000 points on the card against f64 on the CPU:
+    the four parts within 1e-4 relative, each parameter's gradient within
+    2e-3 of its f64 tensor's largest entry."""
+    from sdf_nmpc_tpu_torch.data.losses import loss_sdf
+    from sdf_nmpc_tpu_torch.nn import NeuralDF
+
+    net = NeuralDF(size_latent=16, layer_sizes=(64,) * 4, embed="oct", w0=20.0,
+                   generator=torch.Generator().manual_seed(4))
+    x = np.concatenate([RNG.uniform([0, -2, -1], [4, 2, 1], (2000, 3)),
+                        RNG.normal(size=(2000, 16))], 1)
+    g = RNG.normal(size=(2000, 3))
+    g /= np.linalg.norm(g, axis=1, keepdims=True)
+    g[:100] = 0.0
+    y = RNG.uniform(-0.3, 1.0, 2000)
+    out = {}
+    for key, dev, dt in (("card", cuda_device, torch.float32),
+                         ("f64", torch.device("cpu"), torch.float64)):
+        m = copy.deepcopy(net).to(device=dev, dtype=dt)
+        T = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
+        parts = loss_sdf(m, T(x), T(g), T(y))
+        sum(w * p for w, p in zip((50.0, 1.0, 1 / 60, 5.0), parts)).backward()
+        out[key] = (torch.stack(parts).detach().double().cpu(),
+                    {n: p.grad.double().cpu() for n, p in m.named_parameters()})
+    (p32, g32), (p64, g64) = out["card"], out["f64"]
+    assert float(((p32 - p64).abs() / p64.abs()).max()) <= 1e-4
+    for name, want in g64.items():
+        assert float((g32[name] - want).abs().max()) <= 2e-3 * float(want.abs().max()), name
