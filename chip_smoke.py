@@ -10,7 +10,9 @@ config 1 (no SDF, nc=0; phase 15), config 4 with the formulation extras
 BASELINE config 3 (a depth image through the trained encoder to the
 latent of config 4's step, and the image-fed mission tick; phase 18),
 config 4 at long horizons on the stage-wise QP (N = 60; phase 19), the
-closed loop (phase 20) and the solver routes (phase 21),
+closed loop (phase 20), the solver routes (phase 21), the training side
+(phase 22), the scale-out over torch.distributed (phase 23) and the
+training and evaluation pipelines (phase 24),
 run through
 ``sdf_nmpc_tpu_torch``'s public entry points: the fused path (kernels 1-4,
 the default solver settings) and the composed QP path with
@@ -185,7 +187,7 @@ failure raises and exits non-zero before the result line:
    dropout 0.1, batch 16, the augmenter and erosion labels) over 32 of the
    images, 2 epochs then a resume, ms per step, images/s and peak memory,
    one step against f64 on the CPU (batch 2, dropout off; TRAIN_*_TOL,
-   VAE_GRAD_RTOL);
+   VAE_GRAD_RTOL or GRAD_F32_X times the CPU f32 step's own error);
    train_df at the reference's sizes (4 x 256, latent 128, dropout 0.1,
    batch 50 x 2,500) against that encoder over the 100 images, 2 epochs
    then a resume, ms per step by part (encode, sampling, GT, forward /
@@ -193,15 +195,38 @@ failure raises and exits non-zero before the result line:
    CPU; the trained network packed for kernel 2 (f32x3 and f32 routes held)
    and one cold config-4 att step at B=1024 on the trained encoder's
    latents, kernels 1-4 held on every launch (kernel 4's iterates as
-   recfeas's, phase 17, with ILL_SHARE_SIGMAS), statuses finite and OK.
+   recfeas's, phase 17, with ILL_SHARE_SIGMAS and the plain version on the
+   CPU beside the card's in the max rule), statuses finite and OK.
+23. scale-out (``--scale-out``): a one-rank NCCL group on the loopback
+   (``parallel.initialize_multihost``), ``make_batched_step`` with the mesh
+   at B=8192 on config 4 (default settings, cold budget): u0 and the
+   statuses bit for bit those of the unsharded step on the same inputs,
+   BatchStats the local reduction (mean_kkt within 1e-6 relative),
+   ``gather_batch`` the rank's tensors, kernels 1-4 launched and no other;
+   both steps timed in turn and the stats' all-reduces alone; one
+   data-parallel AdamW step of the trained 4 x 256 network on 8,192 rows
+   against the plain single-process step (DP_RTOL), both timed in turn,
+   and the gradient all-reduce; the group destroyed;
+24. the pipelines (``--pipelines``): ``cli.train_synthetic`` at its
+   defaults held to tests/test_learned_sdf_e2e.py's rules (final loss <
+   0.01; the learned network's closed loop in f32 through kernels 1-4, no
+   failure, clearance > 0, goal error < 0.5), ms a training step and a
+   tick; ``cli.train_latent_sdf --quick`` (finite statistics);
+   ``cli.train_prod_perception --smoke`` through its five stages into a
+   temporary directory, the artifacts read back by the port's loaders,
+   the eval statistics finite; each evaluation function (df_test's
+   slices, df_viz_3d's projections, df_viz_img's trace, vae_test's panels)
+   once on the smoke run's networks, finite.
 
 The last lines are the ``kernels`` JSON (all nine kernels, kernel 2 as one
 row per route, each with its per-launch times ``launch_ms``; the rows of
 kernels 1, 3 and 9 carry each model's numbers under ``per_model``, and at
 top level att's (for kernel 9 att's under sdf_cost); the rows of kernels
 1-9 that the formulation extras, config 3, the long horizons, the
-closed loop and the training side's served network run carry those readings
-under ``per_path``; kernel 4's row ``launch_k_s`` and
+closed loop, the training side's served network, the sharded step (23) and
+the learned closed loop (24) run carry those readings
+under ``per_path``, for 23 and 24 the launches alone (their wall times are
+in the phase reports); kernel 4's row ``launch_k_s`` and
 ``geometry``, kernel 2's rows (f32, f32x3, bf16, mixed) and the
 rows of kernels 1, 3, 5, 7, 8 and 9 their ``geometry``; the ``launches`` of
 kernel 2's f32, bf16 and mixed rows come from the runs of phase 6 that
@@ -239,7 +264,8 @@ print no result line):
     python3 chip_smoke.py --perception
         phases 1, 2 and 18: perception, BASELINE config 3.
     python3 chip_smoke.py --long-horizon | --closed-loop | --solver-routes | --training
-        phases 1, 2 and 19 (20, 21, 22) alone.
+    python3 chip_smoke.py --scale-out | --pipelines
+        phases 1, 2 and 19 (20, 21, 22, 23, 24) alone.
 """
 
 from __future__ import annotations
@@ -777,27 +803,32 @@ def check_condense(args) -> float:
     return max(errs)
 
 
-def held_as_plain(label: str, got, want, ref64, scale, share_sigmas=0.0) -> bool:
+def held_as_plain(label: str, got, want, ref64, scale, share_sigmas=0.0, want_cpu=None) -> bool:
     """Prints the readings of got (kernel), want (plain f32) and both
     against ref64 (plain f64), per scenario over scale (None: absolute), and
     says whether the kernel is as accurate as the plain version against f64
-    under QP_RULE (see as_accurate)."""
+    under QP_RULE (see as_accurate for ``share_sigmas`` and ``want_cpu``)."""
     thr, kind = QP_RULE[0], "abs" if scale is None else "rel"
     if scale is None:
         scale = torch.ones(got.shape[0], dtype=torch.float64, device=got.device)
-    (kp, k64, p64), ok = as_accurate(got, want, ref64, scale, share_sigmas)
+    (kp, k64, p64), bad = as_accurate(got, want, ref64, scale, share_sigmas, want_cpu)
     fmt = lambda rd: f"median {rd[1]:.1e}, max {rd[2]:.1e}, {rd[0]:.2%} above {thr:g}"
+    cpu = ("" if want_cpu is None else
+           f"; plain f32 on the CPU vs f64 max {float(deviation(want_cpu, ref64, scale).max()):.1e}")
     log(f"  {label} {kind}: kernel vs f64 {fmt(k64)}; plain f32 vs f64 {fmt(p64)}; kernel vs "
-        f"plain {fmt(kp)}")
-    return ok
+        f"plain {fmt(kp)}{cpu}" + (f"; beyond the rule on its {', '.join(bad)}" if bad else ""))
+    return not bad
 
 
-def check_ip(args, label: str, as_plain=False, share_sigmas=0.0) -> float:
+def check_ip(args, label: str, as_plain=False, share_sigmas=0.0, cpu_plain=False) -> float:
     """Kernel 4 on one launch against its plain version: dz, best_dz, the
     best merit and the tail sum under IP_FIELDS' rules, or with
     ``as_plain`` (phase 16) each as accurate as the plain version against
     f64 (held_as_plain); ``as_plain`` a tuple of field names: those so
-    held, the others by their rules (phase 17, ILL_FIELDS)."""
+    held, the others by their rules (phase 17, ILL_FIELDS).  With
+    ``cpu_plain`` the plain version also runs in f32 on the CPU, and the
+    fields so held take its largest deviation into the max rule (see
+    as_accurate)."""
     from sdf_nmpc_tpu_torch.ops import ip_kernel
 
     data, state, k_s, n_iters, it0, consts = args[:6]
@@ -807,13 +838,16 @@ def check_ip(args, label: str, as_plain=False, share_sigmas=0.0) -> float:
     want = ip_kernel.ip_phase_plain(data, state, *rest)
     ref64 = ip_kernel.ip_phase_plain(tuple(t.double() for t in data),
                                      tuple(t.double() for t in state), *rest)
+    cpu = (ip_kernel.ip_phase_plain(tuple(t.cpu() for t in data), tuple(t.cpu() for t in state),
+                                    *rest) if cpu_plain else None)
     same_finite(f"ip_phase {label}", got, want)
     failed = []
     for name, (i, relative, rule) in IP_FIELDS.items():
         scale = merit_scale(data, want[10]) if relative else None  # at the plain best_dz
         what = f"ip_phase    {label} (k_s={k_s}, {n_iters} iters) {name}"
         plain_rule = name in as_plain if isinstance(as_plain, tuple) else as_plain
-        if not (held_as_plain(what, got[i], want[i], ref64[i], scale, share_sigmas)
+        if not (held_as_plain(what, got[i], want[i], ref64[i], scale, share_sigmas,
+                              None if cpu is None else cpu[i].to(got[i].device))
                 if plain_rule else
                 held(what, got[i], want[i], ref64[i], scale, rule)):
             failed.append(name)
@@ -851,9 +885,10 @@ def check_fused_solve(call, label: str, as_plain=False, share_sigmas=0.0) -> flo
 
 
 def check_all(cap: Capture, label: str, as_plain=False, sdf_route=None,
-              share_sigmas=0.0) -> dict:
+              share_sigmas=0.0, cpu_plain=False) -> dict:
     """Kernels 1, 3 and 4 (each launch and the whole fused solve; see
-    check_ip for ``as_plain``, as_accurate for ``share_sigmas``) and, where
+    check_ip for ``as_plain`` and ``cpu_plain``, as_accurate for
+    ``share_sigmas``) and, where
     the step called it, kernel 2 by its four routes (or by ``sdf_route``
     alone), against their plain versions on the captured inputs."""
     sdf = ({} if not cap.args("sdf") else check_sdf_routes(cap) if sdf_route is None else
@@ -863,7 +898,7 @@ def check_all(cap: Capture, label: str, as_plain=False, sdf_route=None,
         **sdf,
         "condense": max(check_condense(a) for a in cap.args("condense")),
     }
-    errs["ip_phase"] = max([check_ip(a, f"{label} launch {i}", as_plain, share_sigmas)
+    errs["ip_phase"] = max([check_ip(a, f"{label} launch {i}", as_plain, share_sigmas, cpu_plain)
                             for i, a in enumerate(cap.args("ip_phase"))]
                            + [check_fused_solve(c, label, as_plain, share_sigmas)
                               for c in cap.calls["solve_qp"]])
@@ -928,19 +963,26 @@ def reading(x, thr):
     return float((x > thr).double().mean()), float(x.median()), float(x.max())
 
 
-def as_accurate(got, want, ref64, scale, share_sigmas=0.0):
+def as_accurate(got, want, ref64, scale, share_sigmas=0.0, want_cpu=None):
     """Readings of got (kernel) and want (plain f32) against ref64 (plain
-    f64) and of got against want, per scenario over scale, and whether the
-    kernel is as accurate as the plain version under QP_RULE; with
-    ``share_sigmas`` the share may also exceed the plain version's by that
-    many binomial sigmas, sqrt(2 p (1 - p) / B) (see ILL_SHARE_SIGMAS)."""
+    f64) and of got against want, per scenario over scale, and the parts of
+    QP_RULE ("share", "median", "max") by which the kernel is less accurate
+    than the plain version (none: as accurate); with ``share_sigmas`` the
+    share may also exceed the plain version's by that many binomial sigmas,
+    sqrt(2 p (1 - p) / B) (see ILL_SHARE_SIGMAS); with ``want_cpu``, the
+    plain version run in f32 on the CPU, the max rule holds against the
+    larger of the two plain versions' largest deviations (see
+    ILL_SHARE_SIGMAS)."""
     thr, share_add, med_x, max_x, floor = QP_RULE
     k64, p64 = reading(deviation(got, ref64, scale), thr), reading(deviation(want, ref64, scale), thr)
     share_add = max(share_add, share_sigmas * float(np.sqrt(2 * p64[0] * (1 - p64[0])
                                                             / got.shape[0])))
-    ok = (k64[0] <= p64[0] + share_add and k64[1] <= med_x * p64[1] + floor
-          and k64[2] <= max_x * p64[2] + floor)
-    return (reading(deviation(got, want, scale), thr), k64, p64), ok
+    top = p64[2] if want_cpu is None else max(p64[2], float(deviation(want_cpu, ref64,
+                                                                      scale).max()))
+    bad = [part for part, ok in (("share", k64[0] <= p64[0] + share_add),
+                                 ("median", k64[1] <= med_x * p64[1] + floor),
+                                 ("max", k64[2] <= max_x * top + floor)) if not ok]
+    return (reading(deviation(got, want, scale), thr), k64, p64), bad
 
 
 def check_qp_kernel(name, calls, label, ds_inv=None) -> float:
@@ -964,8 +1006,8 @@ def check_qp_kernel(name, calls, label, ds_inv=None) -> float:
         same_finite(f"{name} {label} launch {i}", got, want)
         for out, g, w, r in zip(QP_OUTPUTS[name], got, want, ref64):
             scale = r.abs().flatten(1).amax(-1) + 1e-30
-            readings, ok = as_accurate(g, w, r, scale)
-            if not ok:
+            readings, bad = as_accurate(g, w, r, scale)
+            if bad:
                 failed.add(f"{out} (launch {i})")
             for j, rd in enumerate(readings):
                 worst[out][j] = [max(a, b) for a, b in zip(worst[out][j], rd)]
@@ -3134,9 +3176,15 @@ CHECK_POINTS = 5000  # 22c's card-vs-f64 step
 # f32 sums put them 1.2e-3 to 4.3e-3 from f64 on an H100 (the CPU's f32
 # 2.5-6x nearer, printed beside; 6e-3 on the CPU at 30 x 50), batch norm
 # over 2 images amplifying; a wrong gradient reads O(1).  The NeuralDF's
-# read 1.8e-6.
+# read 1.8e-6.  The network is a few steps old and differs from run to run
+# (cuDNN's nondeterministic sums), and on some runs one batch norm bias's
+# gradient lies beyond VAE_GRAD_RTOL in f32 whatever the machine: 3.40e-2
+# on the card where the CPU's f32 read 3.41e-2 (one run of 35 on an H100;
+# 2.03e-2 and 2.03e-2 on another).  So a tensor is also held if it lies
+# within GRAD_F32_X times the CPU f32 step's own error.
 TRAIN_LOSS_RTOL, TRAIN_STATS_TOL = 1e-4, 1e-4
 VAE_GRAD_RTOL, DF_GRAD_RTOL = 2e-2, 1e-4
+GRAD_F32_X = 2.0
 SERVE_B = 1024  # 22d's cold step
 # 22d: the few-steps-old network leaves kernel 4's stiff-phase iterates
 # ill-determined in f32: kernel and plain version each lie beyond 1e-4 of
@@ -3144,7 +3192,12 @@ SERVE_B = 1024  # 22d's cold step
 # many, so whether the kernel's share exceeds the plain version's by
 # QP_RULE's 2% is a coin toss (-0.3% to +2.5% over repeated runs on an H100,
 # whose trained nets differ by cuDNN's nondeterministic sums).  Held there
-# with 3 binomial sigmas of two independent shares allowed on top.
+# with 3 binomial sigmas of two independent shares allowed on top.  The
+# largest deviation is one scenario's and as much a coin toss: over 34 runs
+# on an H100 the kernel's lay 0.28-4.07x the plain version's (the 4.07 a
+# failed run), and over 9 of them the plain version run in f32 on the CPU
+# lay 0.29-3.50x the plain version on the card.  So the max rule holds the
+# kernel against the larger of the two plain versions' (0.37-1.75x there).
 ILL_SHARE_SIGMAS = 3.0
 
 
@@ -3290,21 +3343,25 @@ def held_train_step(label, card, out, grad_rtol) -> dict:
     CPU (``out``: 'card', 'f32' (the CPU in f32) and 'f64', each (loss
     parts, gradients by name, running statistics by name)): loss parts
     within TRAIN_LOSS_RTOL, each gradient's relative L2 error within
-    ``grad_rtol`` (the CPU f32 one's printed beside), running statistics
-    within TRAIN_STATS_TOL (1 + |v|)."""
+    ``grad_rtol`` or GRAD_F32_X times the CPU f32 one's (printed beside),
+    running statistics within TRAIN_STATS_TOL (1 + |v|)."""
     (l32, g32, s32), (_, gf, _), (l64, g64, s64) = out["card"], out["f32"], out["f64"]
     lerr = max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-30) for a, b in zip(l32, l64))
     rel = lambda g, name: float((g[name].double().cpu() - g64[name]).norm()) / max(
         float(g64[name].norm()), 1e-30)
-    worst = max(((rel(g32, n), rel(gf, n), n) for n in g64))
+    errs = [(rel(g32, n), rel(gf, n), n) for n in g64]
+    worst = max(errs)
+    beyond = [n for card_err, cpu_err, n in errs if not card_err <= max(grad_rtol,
+                                                                        GRAD_F32_X * cpu_err)]
     serr = max([float(((s32[n].double().cpu() - v).abs() / (1 + v.abs())).max())
                 for n, v in s64.items()] or [0.0])
     log(f"{label}: card f32 vs CPU f64, one forward and backward: loss parts rel {lerr:.2e} "
         f"(tol {TRAIN_LOSS_RTOL}); gradients' relative L2 error per tensor, worst {worst[2]}: "
-        f"card {worst[0]:.2e} (tol {grad_rtol}), CPU f32 {worst[1]:.2e}; "
+        f"card {worst[0]:.2e} (tol {grad_rtol} or {GRAD_F32_X:g}x the CPU f32's), CPU f32 "
+        f"{worst[1]:.2e}; beyond the rule {beyond}; "
         + (f"running statistics {serr:.2e} of 1 + |v| (tol {TRAIN_STATS_TOL}); " if s64 else "")
         + f"card {card}")
-    if not (lerr <= TRAIN_LOSS_RTOL and worst[0] <= grad_rtol and serr <= TRAIN_STATS_TOL):
+    if not (lerr <= TRAIN_LOSS_RTOL and not beyond and serr <= TRAIN_STATS_TOL):
         raise AssertionError(f"{label}: the card's training step disagrees with f64")
     return {"loss_rel_err": lerr, "grad_worst": worst[2], "grad_l2_rel_err": worst[0],
             "grad_l2_rel_err_cpu_f32": worst[1], "stats_err": serr if s64 else None}
@@ -3446,7 +3503,8 @@ def train_to_serve(dev, card, net, encoder, imgs, part, peaks) -> tuple:
     and f32 routes against their plain versions on one cold step's inputs;
     that cold config-4 att step at SERVE_B on 22b's encoder latents of the
     first 32 images, kernels 1-4 held on every launch (kernel 4's iterates
-    as accurate as the plain version against f64, ILL_FIELDS); statuses
+    as accurate as the plain version against f64, ILL_FIELDS, the max
+    against the plain version on the card and on the CPU); statuses
     finite and OK (no u0 gate: the network is a few steps old).  Returns
     (rows, report)."""
     from sdf_nmpc_tpu_torch.config import default_config
@@ -3478,9 +3536,10 @@ def train_to_serve(dev, card, net, encoder, imgs, part, peaks) -> tuple:
         raise AssertionError("22d: the trained network's step is not finite and OK")
     # the few-steps-old network's rows leave the IP iterates ill-conditioned:
     # those fields held as accurate as the plain version against f64, as
-    # recfeas's (ILL_FIELDS), the share by ILL_SHARE_SIGMAS
+    # recfeas's (ILL_FIELDS), the share by ILL_SHARE_SIGMAS, the max against
+    # the plain version on the card and on the CPU
     errs = check_all(cap, "train -> serve", as_plain=ILL_FIELDS, sdf_route="sdf_fused_x3",
-                     share_sigmas=ILL_SHARE_SIGMAS)
+                     share_sigmas=ILL_SHARE_SIGMAS, cpu_plain=True)
     errs["sdf_fused"] = max(check_sdf(a, "sdf_fused") for a in cap.args("sdf"))
     calls = {name: cap.args("sdf" if name == "sdf_fused_x3" else name) for name in used}
     log(f"kernel numbers, train -> serve: the launches of that cold step, B={SERVE_B}")
@@ -3514,6 +3573,266 @@ def phase_training(dev, card) -> dict:
     report["wall_s"] = time.perf_counter() - t0
     log(f"phase 22 (training side): {report['wall_s']:.1f} s wall; card {card}")
     log(json.dumps({"training": report}, default=float))
+    return {"per_path": per_path, "report": report}
+
+
+SCALE_B = MAIN_B  # phase 23's sharded step
+DP_ROWS = 8192  # phase 23's data-parallel training step
+SCALE_ROUNDS = 3  # sharded and unsharded steps timed in turn
+DP_RTOL = 1e-6  # the data-parallel step against the plain one, per tensor, relative
+FUSED_USED = ["lin_y_sens", "sdf_fused_x3", "condense", "ip_phase"]
+
+
+def rel_diff(a, b) -> float:
+    """max |a - b| / max |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def synced_ms(fn):
+    """(fn(), its wall ms between two synchronizes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_scale_out(dev, card) -> dict:
+    """Phase 23, scale-out (``--scale-out`` runs phases 1, 2 and this one
+    alone): a one-rank NCCL group on the loopback (initialize_multihost),
+    make_batched_step with the mesh at B=SCALE_B on BASELINE config 4
+    (default settings, the trained 4 x 256 network, cold budget): u0 and the
+    statuses bit for bit those of the unsharded step on the same inputs,
+    BatchStats the local reduction (mean_kkt within 1e-6 relative),
+    gather_batch the rank's tensors, kernels 1-4 launched and no other; the
+    sharded and unsharded steps timed in turn, the all-reduces alone; one
+    data-parallel AdamW step of the 4 x 256 network on DP_ROWS rows against
+    the plain single-process step (DP_RTOL); the group destroyed."""
+    import copy
+
+    import torch.distributed as dist
+
+    from sdf_nmpc_tpu_torch.cli.dryrun_multiprocess import free_port
+    from sdf_nmpc_tpu_torch.nn.weights import load_prod_sdf
+    from sdf_nmpc_tpu_torch.ops import _lib
+    from sdf_nmpc_tpu_torch.parallel import (Mesh, gather_batch, initialize_multihost,
+                                             make_batched_step, make_dp_train_step, shard_batch,
+                                             shutdown)
+    from sdf_nmpc_tpu_torch.solver import init_state
+    from sdf_nmpc_tpu_torch.utils import accuracy
+
+    t0 = time.perf_counter()
+    cfg, ocp, layout, _ = accuracy.build_setup(device=dev)
+    inputs = bench_inputs(ocp, cfg, layout, SCALE_B, SEED, dev)
+    states = init_state(ocp, inputs.x0)
+    report, per_path = {}, {}
+    mesh = initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        log(f"23 scale-out: NCCL group of {mesh.size} rank(s), backend {dist.get_backend()}, "
+            f"device {mesh.device}")
+        plain_step = make_batched_step(ocp, cfg)
+        sharded_step = make_batched_step(ocp, cfg, mesh=mesh)
+        sh_states, sh_inputs = shard_batch(states, mesh), shard_batch(inputs, mesh)
+        (want, want_stats), plain_ms = synced_ms(lambda: plain_step(states, inputs))
+        _lib.reset_launch_counts()
+        (res, stats), sharded_ms = synced_ms(lambda: sharded_step(sh_states, sh_inputs))
+        counts = dict(_lib.launch_counts)
+        label = f"scale-out: sharded step, 1 NCCL rank, B={SCALE_B}, cold"
+        launched_only(label, counts, FUSED_USED)
+        u0 = gather_batch(res.u0, mesh)
+        same_u0 = torch.equal(u0, want.u0) and torch.equal(res.u0, want.u0)
+        same_status = torch.equal(gather_batch(res.status, mesh), want.status)
+        ok = want.status == 0
+        local = (int(ok.sum()), int((~ok).sum()), float(want.kkt_residual.max()),
+                 float(want.kkt_residual.mean()))
+        got = (int(stats.n_ok), int(stats.n_failed), float(stats.max_kkt), float(stats.mean_kkt))
+        mean_rel = abs(got[3] - local[3]) / max(abs(local[3]), 1e-30)
+        log(f"23 {label}: u0 {'equal' if same_u0 else 'NOT equal'} bit for bit to the unsharded "
+            f"step's, statuses {'equal' if same_status else 'NOT equal'}; BatchStats {got} "
+            f"against the local reduction {local} (mean_kkt {mean_rel:.2e} relative); card {card}")
+        if not (same_u0 and same_status):
+            raise AssertionError("23: the sharded step's u0 or statuses differ from the unsharded")
+        if got[:3] != local[:3] or mean_rel > 1e-6 or got[0] != SCALE_B:
+            raise AssertionError(f"23: BatchStats {got} against the local reduction {local}")
+        if [int(s) for s in want_stats[:2]] != list(local[:2]):
+            raise AssertionError("23: the unsharded step's BatchStats differ from its results")
+        times = {"sharded": [sharded_ms], "unsharded": [plain_ms]}
+        for _ in range(SCALE_ROUNDS):
+            times["unsharded"].append(synced_ms(lambda: plain_step(states, inputs))[1])
+            times["sharded"].append(synced_ms(lambda: sharded_step(sh_states, sh_inputs))[1])
+        sums = torch.zeros(3, dtype=torch.float64, device=mesh.device)
+        top = torch.zeros((), device=mesh.device)
+        stats_ms = cuda_ms(lambda: (dist.all_reduce(sums, group=mesh.group),
+                                    dist.all_reduce(top, op=dist.ReduceOp.MAX,
+                                                    group=mesh.group)), 20)
+        report["step"] = {"sharded_ms": times["sharded"], "unsharded_ms": times["unsharded"],
+                          "stats_allreduce_ms": stats_ms, "launches": counts}
+        log(f"23 cold step at B={SCALE_B}, wall ms (sharded, unsharded, in turn; the first of "
+            f"each the checked run): sharded {[round(t, 3) for t in times['sharded']]}, "
+            f"unsharded {[round(t, 3) for t in times['unsharded']]}; the stats' two "
+            f"all-reduces {stats_ms:.4f} ms (CUDA events, 20 reps); card {card}")
+        for name in FUSED_USED:  # the step's wall times stay in the phase report
+            per_path.setdefault(name, {})[label] = {"launches": counts[name]}
+        del res, want, sh_states, sh_inputs
+
+        net = load_prod_sdf(require_latent=accuracy.LATENT, require_layers=accuracy.LAYERS,
+                            device=dev).train()
+        ref = copy.deepcopy(net)
+        rng = np.random.default_rng(SEED)
+        x = rng.normal(size=(DP_ROWS, 3 + accuracy.LATENT)).astype(np.float32)
+        y = rng.normal(size=(DP_ROWS, 1)).astype(np.float32)
+        adamw = lambda m: torch.optim.AdamW(m.parameters(), lr=1e-3, weight_decay=1e-4, eps=1e-8)
+        dp = make_dp_train_step(net, adamw(net), mesh)
+        plain = make_dp_train_step(ref, adamw(ref), Mesh(dev, 0, 1))
+        rows_dp, rows_plain = shard_batch((x, y), mesh), shard_batch((x, y), Mesh(dev, 0, 1))
+        loss, dp_ms = synced_ms(lambda: dp(*rows_dp))
+        ref_loss, plain_ms = synced_ms(lambda: plain(*rows_plain))
+        worst = max(rel_diff(a, b) for a, b in zip(net.state_dict().values(),
+                                                   ref.state_dict().values()))
+        loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        dp_t, plain_t = [dp_ms], [plain_ms]
+        for _ in range(SCALE_ROUNDS):  # more steps in turn, timed only
+            plain_t.append(synced_ms(lambda: plain(*rows_plain))[1])
+            dp_t.append(synced_ms(lambda: dp(*rows_dp))[1])
+        flat = torch.zeros(sum(p.numel() for p in net.parameters()), device=mesh.device)
+        grad_ms = cuda_ms(lambda: dist.all_reduce(flat, group=mesh.group), 20)
+        report["dp"] = {"rows": DP_ROWS, "loss": float(loss), "loss_rel_err": loss_rel,
+                        "param_rel_err": worst, "dp_ms": dp_t, "plain_ms": plain_t,
+                        "grad_allreduce_ms": grad_ms, "grad_numel": flat.numel()}
+        log(f"23 data-parallel AdamW step, 4 x 256 network, {DP_ROWS} rows: loss {float(loss):.6f} "
+            f"({loss_rel:.2e} from the plain step), parameters {worst:.2e} relative (rule "
+            f"{DP_RTOL}); wall ms (the first of each the checked step, then in turn): "
+            f"data-parallel {[round(t, 3) for t in dp_t]}, plain {[round(t, 3) for t in plain_t]}; "
+            f"the gradient all-reduce ({flat.numel()} floats) {grad_ms:.4f} ms; card {card}")
+        if worst > DP_RTOL or loss_rel > DP_RTOL:
+            raise AssertionError("23: the data-parallel step differs from the plain step")
+    finally:
+        shutdown()
+    report["wall_s"] = time.perf_counter() - t0
+    log(f"phase 23 (scale-out): {report['wall_s']:.1f} s wall; card {card}")
+    log(json.dumps({"scale_out": report}, default=float))
+    return {"per_path": per_path, "report": report}
+
+
+def phase_pipelines(dev, card) -> dict:
+    """Phase 24, the training and evaluation pipelines (``--pipelines`` runs
+    phases 1, 2 and this one alone): train_synthetic at its defaults, held
+    to tests/test_learned_sdf_e2e.py's rules (final loss < 0.01; the learned
+    network's closed loop in f32 through kernels 1-4: no failure, clearance
+    > 0, goal error < 0.5); train_latent_sdf --quick (finite statistics);
+    train_prod_perception --smoke through its five stages into a temporary
+    directory, the artifacts read back by the port's loaders and the eval
+    statistics finite; each evaluation function once on the smoke run's
+    networks (finite); ms per training step and per closed-loop tick."""
+    import tempfile
+
+    from sdf_nmpc_tpu_torch.cli import train_latent_sdf, train_prod_perception
+    from sdf_nmpc_tpu_torch.cli.df_test import frustum_slices
+    from sdf_nmpc_tpu_torch.cli.df_viz_3d import closest_points
+    from sdf_nmpc_tpu_torch.cli.df_viz_img import trace_image
+    from sdf_nmpc_tpu_torch.cli.train_synthetic import (closed_loop_rollout, random_scene,
+                                                        train_sdf_on_scene)
+    from sdf_nmpc_tpu_torch.cli.vae_test import vae_panels
+    from sdf_nmpc_tpu_torch.data import DfComputer, PosSampler
+    from sdf_nmpc_tpu_torch.data.h5 import test_dataset_from_h5
+    from sdf_nmpc_tpu_torch.nn.weights import load_prod_encoder, load_prod_latents, load_prod_sdf
+    from sdf_nmpc_tpu_torch.ops import _lib
+
+    t0 = time.perf_counter()
+    report, per_path = {}, {}
+    # 24a: train_synthetic at its defaults
+    scene = random_scene(np.random.default_rng(SEED), device=dev)
+    steps = []
+    net, loss = train_sdf_on_scene(scene, device=dev, log_every=0, timer=steps)
+    res, tick_ms, counts = timed_rollout(lambda: closed_loop_rollout(scene, net, dtype="float32",
+                                                                     device=dev))
+    label = "pipelines: train_synthetic's learned closed loop, B=1, 120 ticks, f32"
+    launched_only(label, counts, FUSED_USED)
+    clearance, err = float(res.min_clearance[0]), float(res.tracking_error[0])
+    fails = int(res.statuses.sum())
+    report["synthetic"] = {"steps": len(steps), "final_loss": loss,
+                           "step_ms": float(np.median(steps) * 1e3), "clearance": clearance,
+                           "goal_err": err, "failures": fails, "tick_ms": tick_ms,
+                           "launches": counts}
+    log(f"24a train_synthetic: {len(steps)} steps, final loss {loss:.5f} (rule < 0.01), "
+        f"{np.median(steps) * 1e3:.3f} ms a step (median, synchronized); {label}: clearance "
+        f"{clearance:.4f} m (rule > 0), goal error {err:.4f} m (rule < 0.5), failures {fails}, "
+        f"{tick_ms:.3f} ms a tick; card {card}")
+    if not (loss < 0.01 and fails == 0 and clearance > 0.0 and err < 0.5):
+        raise AssertionError("24a: train_synthetic missed tests/test_learned_sdf_e2e.py's rules")
+    for name in FUSED_USED:  # the tick's wall time stays in the phase report
+        per_path.setdefault(name, {})[label] = {"launches": counts[name]}
+
+    # 24b: train_latent_sdf --quick
+    stats, ms = synced_ms(lambda: train_latent_sdf.run(
+        train_latent_sdf.parse_args(["--quick", "--device", str(dev)]), log_fn=log))
+    report["latent_quick"] = {**stats, "wall_ms": ms}
+    log(f"24b train_latent_sdf --quick: {ms / 1e3:.1f} s; card {card}")
+    if not all(np.isfinite(v) for v in stats.values()):
+        raise AssertionError(f"24b: non-finite statistics {stats}")
+
+    # 24c: train_prod_perception --smoke, five stages; 24d: the evaluation functions
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pipelines_") as tmp:
+        args = train_prod_perception.parse_args(
+            ["data", "vae", "df", "save", "eval", "--smoke", "--device", str(dev),
+             "--workdir", tmp])
+        stage_s = {}
+        for stage in args.stages:
+            _, ms = synced_ms(lambda: train_prod_perception.STAGES[stage](args))
+            stage_s[stage] = ms / 1e3
+        out = args.out
+        sdf = load_prod_sdf(out, require_latent=args.latent, require_layers=tuple(args.layers),
+                            device=dev)
+        enc = load_prod_encoder(out, expect_img=(args.H, args.W), strict=True, device=dev)
+        lats = load_prod_latents(out)
+        meta = json.loads(open(f"{out}/meta.json").read())
+        finite = all(np.isfinite(v) for v in meta.get("stats", {}).values())
+        report["prod_smoke"] = {"stage_s": stage_s, "stats": meta.get("stats"),
+                                "dataset": train_prod_perception.DATASET}
+        log(f"24c train_prod_perception --smoke: stages {stage_s} s; dataset "
+            f"{report['prod_smoke']['dataset']}; artifacts read back: sdf "
+            f"{sdf is not None}, encoder {enc is not None}, latents "
+            f"{None if lats is None else lats.shape}; eval stats {meta.get('stats')}; card {card}")
+        if sdf is None or enc is None or lats is None or len(meta.get("stats", {})) != 14 \
+                or not finite:
+            raise AssertionError("24c: the smoke run's artifacts or statistics are missing")
+
+        vae, df = train_prod_perception.load_trained(args)
+        ds, md = test_dataset_from_h5(tmp, train_prod_perception.DATASET, 5.0,
+                                      device=dev)
+        img, _ = ds[0]
+        with torch.no_grad():
+            latent = vae.encoder(img[None])[0]
+        df_cpt = DfComputer(True, 5.0, md["hfov"], md["vfov"], 1.0, device=dev)
+        sampler = PosSampler(5.0, md["hfov"], md["vfov"], device=dev)
+        evals = {}
+        slices, evals["df_test_ms"] = synced_ms(
+            lambda: frustum_slices(df, latent, img[0], df_cpt, sampler, [-15.0, 0.0, 15.0]))
+        pts = sampler.sample_pos_in_frustrum(torch.Generator(device=dev).manual_seed(0), 3000)
+        proj, evals["df_viz_3d_ms"] = synced_ms(
+            lambda: closest_points(df, latent, pts, img[0], df_cpt))
+        traced, evals["df_viz_img_ms"] = synced_ms(
+            lambda: trace_image(df, latent, args.H // 5, args.W // 5, md["hfov"], md["vfov"],
+                                False, 5.0))
+        vds, _ = test_dataset_from_h5(tmp, train_prod_perception.DATASET, 5.0,
+                                      vae=True, col_map=True, device=dev)
+        vimg, vlab = vds[0]
+        panels, evals["vae_test_ms"] = synced_ms(lambda: vae_panels(vae, vimg[0], vlab[0]))
+        arrays = ([r[k] for r in slices for k in ("X", "Y", "gt", "nn")] +
+                  [p.cpu().numpy() for p in proj[:2]] + [traced.cpu().numpy()] +
+                  [p[0] for p in panels])
+        ok = all(np.isfinite(a).all() for a in arrays) and len(slices) == 3
+        report["evals"] = evals
+        log(f"24d evaluation functions on the smoke run's networks: frustum slices "
+            f"{[r['gt'].shape for r in slices]}, projections {tuple(proj[0].shape)} "
+            f"({int(proj[2].sum())} unsaturated), traced image {tuple(traced.shape)}, VAE panels "
+            f"{[p[1] for p in panels]}: {'finite' if ok else 'NOT finite'}; ms {evals}; "
+            f"card {card}")
+        if not ok:
+            raise AssertionError("24d: an evaluation function gave non-finite values")
+    report["wall_s"] = time.perf_counter() - t0
+    log(f"phase 24 (pipelines): {report['wall_s']:.1f} s wall; card {card}")
+    log(json.dumps({"pipelines": report}, default=float))
     return {"per_path": per_path, "report": report}
 
 
@@ -3779,6 +4098,10 @@ def main(argv=None) -> int:
                     help="run only the solver routes (phase 21), then stop")
     ap.add_argument("--training", action="store_true",
                     help="run only the training side (phase 22), then stop")
+    ap.add_argument("--scale-out", action="store_true",
+                    help="run only the scale-out on torch.distributed (phase 23), then stop")
+    ap.add_argument("--pipelines", action="store_true",
+                    help="run only the training and evaluation pipelines (phase 24), then stop")
     args = ap.parse_args(argv)
     card = phase_card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3804,7 +4127,9 @@ def main(argv=None) -> int:
     for flag, phase in ((args.long_horizon, phase_long_horizon),
                         (args.closed_loop, phase_closed_loop),
                         (args.solver_routes, phase_solver_routes),
-                        (args.training, phase_training)):
+                        (args.training, phase_training),
+                        (args.scale_out, phase_scale_out),
+                        (args.pipelines, phase_pipelines)):
         if flag:
             phase(dev, card)
             return 0
@@ -3846,6 +4171,8 @@ def main(argv=None) -> int:
     closed_loop = phase_closed_loop(dev, card)
     phase_solver_routes(dev, card)
     training = phase_training(dev, card)
+    scale_out = phase_scale_out(dev, card)
+    pipelines = phase_pipelines(dev, card)
     for i, row in enumerate(rows):  # kernels 1 and 3: att's numbers, every model's beside
         if row["name"] in ("lin_y_sens", "condense"):
             rows[i] = kernel_row_per_model({"att": row, **per_kernel[row["name"]]}, "att")
@@ -3853,7 +4180,8 @@ def main(argv=None) -> int:
     rows.append(kernel_row_per_model({**extras["erk4_sens"], **per_kernel["erk4_sens"]}, "att"))
     for row in rows:  # the formulation extras' and config 3's readings of kernels 1-8
         for per_path in (extras["per_path"], perception["per_path"], long_horizon["per_path"],
-                         closed_loop["per_path"], training["per_path"]):
+                         closed_loop["per_path"], training["per_path"], scale_out["per_path"],
+                         pipelines["per_path"]):
             if row["name"] in per_path:
                 row.setdefault("per_path", {}).update(per_path[row["name"]])
     print(json.dumps({"kernels": rows}), flush=True)

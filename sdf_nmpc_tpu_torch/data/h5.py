@@ -13,7 +13,9 @@ and scripts/neural_nets/create_h5.py):
     per source, their attributes checked for agreement.
 
 h5py is imported inside the functions that read or write h5 files: the GPU
-host has none.
+host has none.  The port writes its own datasets as .npz files of the same
+layout (``write_image_dataset``; arrays ``train/images``, ``test/images``
+and ``attrs/<name>``), and every reader here takes either kind.
 """
 
 from __future__ import annotations
@@ -96,6 +98,37 @@ class ImageDataset:
             yield self._pairs(self._raw(sel), sel)
 
 
+class _NpzDataset:
+    """The h5 file's interface (groups of ``images``, ``attrs``) over an .npz."""
+
+    def __init__(self, path):
+        with np.load(path) as z:
+            self.groups = {k.split("/")[0]: {"images": z[k]} for k in z.files
+                           if k.endswith("/images")}
+            self.attrs = {k.split("/", 1)[1]: z[k][()] for k in z.files if k.startswith("attrs/")}
+
+    def __getitem__(self, group):
+        return self.groups[group]
+
+
+def open_image_dataset(path):
+    """An h5py File of an image dataset, or its .npz counterpart."""
+    if str(path).endswith(".npz"):
+        return _NpzDataset(path)
+    import h5py
+
+    return h5py.File(path, "r")
+
+
+def write_image_dataset(path, train, test, attrs: dict):
+    """Train and test image arrays (N, 1, H, W) and the sensor attributes
+    (hfov, vfov, aspect_ratio, is_depth, is_spherical) as an .npz file in
+    the h5 file's layout."""
+    np.savez(path, **{"train/images": train, "test/images": test},
+             **{f"attrs/{k}": np.asarray(v) for k, v in attrs.items()})
+    return path
+
+
 def _prepare_dataset(h5file, train, dmax, vae, col_map):
     """(data, metadata, preprocess, augment, col_mapping) (reference
     data.py:153-189)."""
@@ -127,9 +160,7 @@ def _prepare_dataset(h5file, train, dmax, vae, col_map):
 
 
 def test_dataset_from_h5(path_to_data, dataset, dmax, vae=False, col_map=False, device="cuda"):
-    import h5py
-
-    h5file = h5py.File(os.path.join(path_to_data, dataset), "r")
+    h5file = open_image_dataset(os.path.join(path_to_data, dataset))
     data, metadata, preprocess, _, col_mapping = _prepare_dataset(h5file, False, dmax, vae,
                                                                   col_map)
     ds = ImageDataset(data, range(metadata["nb_imgs"]), preprocess, None, col_mapping,
@@ -140,9 +171,7 @@ def test_dataset_from_h5(path_to_data, dataset, dmax, vae=False, col_map=False, 
 def train_dataset_from_h5(path_to_data, dataset, dmax, train_valid_ratio=0.8, vae=False,
                           col_map=False, seed=42, device="cuda"):
     """((train_ds, valid_ds), metadata); the split is seed-pinned for resume."""
-    import h5py
-
-    h5file = h5py.File(os.path.join(path_to_data, dataset), "r")
+    h5file = open_image_dataset(os.path.join(path_to_data, dataset))
     data, metadata, preprocess, augment, col_mapping = _prepare_dataset(h5file, True, dmax, vae,
                                                                         col_map)
     n = metadata["nb_imgs"]

@@ -6,7 +6,9 @@ has neither flax nor msgpack, so this module carries its own reader of that
 format: standard msgpack, where ext type 1 packs an array as a nested msgpack
 tuple ``(shape, dtype name, C-order bytes)``, ext type 3 a numpy scalar the
 same way, and arrays above 1 GiB arrive as ``__msgpack_chunked_array__``
-dicts.  ``params_from_jax`` turns the flax tree (numpy leaves) into the port's
+dicts; ``msgpack_serialize`` writes the same format (flax's
+``serialization.to_bytes`` reads it back).  ``params_from_jax`` turns the
+flax tree (numpy leaves) into the port's
 ``NeuralDF`` state dict: a flax Dense ``kernel`` is (in, out), a torch Linear
 ``weight`` is (out, in).  ``encoder_from_jax`` and ``decoder_from_jax`` do
 the same for the VAE (``nn/vae.py``): convolution kernels HWIO -> OIHW, the
@@ -15,6 +17,8 @@ unflipped (in, out, kh, kw), BatchNorm scale / bias / batch_stats -> weight
 / bias / running statistics, and the head rows from flax's (h, w, c) flatten
 order to torch's (c, h, w); ``vae_from_jax`` the whole Vae.
 ``opt_state_from_jax`` carries optax's AdamW state across to torch's.
+``params_to_jax``, ``encoder_to_jax`` and ``decoder_to_jax`` go the other
+way, for the artifacts the training pipelines write.
 """
 
 from __future__ import annotations
@@ -140,6 +144,100 @@ def msgpack_restore(data: bytes):
     return _unchunk(tree)
 
 
+class _Writer:
+    """Minimal msgpack encoder: what flax's ``msgpack_serialize`` writes for
+    a tree of dicts, lists, scalars, strings and numpy arrays."""
+
+    def __init__(self):
+        self.out = bytearray()
+
+    def _head(self, n: int, fix: int, fix_max: int, codes):
+        if fix is not None and n <= fix_max:
+            self.out.append(fix | n)
+        elif n < 1 << 8 and codes[0] is not None:
+            self.out += struct.pack(">BB", codes[0], n)
+        elif n < 1 << 16:
+            self.out += struct.pack(">BH", codes[1], n)
+        else:
+            self.out += struct.pack(">BI", codes[2], n)
+
+    def _int(self, v: int):
+        if 0 <= v <= 0x7F or -32 <= v < 0:
+            self.out += struct.pack(">b" if v < 0 else ">B", v)
+            return
+        kinds = ((">BB", 0xCC, 0, 1 << 8), (">BH", 0xCD, 0, 1 << 16), (">BI", 0xCE, 0, 1 << 32),
+                 (">BQ", 0xCF, 0, 1 << 64)) if v > 0 else (
+                 (">Bb", 0xD0, -(1 << 7), 1), (">Bh", 0xD1, -(1 << 15), 1),
+                 (">Bi", 0xD2, -(1 << 31), 1), (">Bq", 0xD3, -(1 << 63), 1))
+        for fmt, code, lo, hi in kinds:
+            if lo <= v < hi:
+                self.out += struct.pack(fmt, code, v)
+                return
+        raise ValueError(f"integer {v} does not fit msgpack")
+
+    def _ext(self, code: int, payload: bytes):
+        n = len(payload)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixext:
+            self.out.append(fixext[n])
+        else:
+            self._head(n, None, 0, (0xC7, 0xC8, 0xC9))
+        self.out += struct.pack(">b", code) + payload
+
+    def write(self, v):
+        if v is None or isinstance(v, bool):
+            self.out.append({None: 0xC0, False: 0xC2, True: 0xC3}[v])
+        elif isinstance(v, int):
+            self._int(v)
+        elif isinstance(v, float):
+            self.out += struct.pack(">Bd", 0xCB, v)
+        elif isinstance(v, str):
+            b = v.encode("utf-8")
+            self._head(len(b), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+            self.out += b
+        elif isinstance(v, (bytes, bytearray)):
+            self._head(len(v), None, 0, (0xC4, 0xC5, 0xC6))
+            self.out += v
+        elif isinstance(v, dict):
+            self._head(len(v), 0x80, 15, (None, 0xDE, 0xDF))
+            for k, x in v.items():
+                self.write(k)
+                self.write(x)
+        elif isinstance(v, (list, tuple)):
+            self._head(len(v), 0x90, 15, (None, 0xDC, 0xDD))
+            for x in v:
+                self.write(x)
+        elif isinstance(v, (np.ndarray, np.generic)):
+            a = np.asarray(v)
+            if a.nbytes > _MAX_CHUNK:
+                raise ValueError(f"an array of {a.nbytes} bytes needs flax's chunked layout")
+            payload = _Writer()
+            payload.write([list(a.shape), a.dtype.name, np.ascontiguousarray(a).tobytes()])
+            self._ext(3 if isinstance(v, np.generic) else 1, bytes(payload.out))
+        else:
+            raise TypeError(f"cannot write {type(v).__name__} as flax msgpack")
+
+
+_MAX_CHUNK = 2 ** 30 - 2  # flax's MAX_CHUNK_SIZE: larger arrays are split, not written here
+
+
+def msgpack_serialize(tree) -> bytes:
+    """Flax msgpack bytes of a tree of dicts (string keys) and arrays
+    (numpy or torch; torch tensors are taken to the CPU), as flax's
+    ``serialization.to_bytes`` writes it."""
+
+    def plain(t):
+        if isinstance(t, dict):
+            return {str(k): plain(v) for k, v in t.items()}
+        if isinstance(t, torch.Tensor):
+            return t.detach().cpu().numpy()
+        return t
+
+    w = _Writer()
+    w.write(plain(tree))
+    return bytes(w.out)
+
+
 def params_from_jax(tree) -> dict:
     """NeuralDF state dict from a flax parameter tree of numpy arrays
     (``{'params': {...}}`` or the inner dict)."""
@@ -150,6 +248,14 @@ def params_from_jax(tree) -> dict:
         state[f"{name}.weight"] = torch.from_numpy(np.array(kernel.T, order="C"))
         state[f"{name}.bias"] = torch.from_numpy(np.array(p[name]["bias"], order="C"))
     return state
+
+
+def params_to_jax(state: dict) -> dict:
+    """Flax variables ``{'params': ...}`` (numpy) of a NeuralDF state dict:
+    the inverse of ``params_from_jax``."""
+    to_np = lambda t: t.detach().cpu().numpy()
+    return {"params": {name: {"kernel": np.ascontiguousarray(to_np(state[f"{name}.weight"]).T),
+                              "bias": to_np(state[f"{name}.bias"])} for name in _LAYERS}}
 
 
 def _meta(d: Path):
@@ -250,6 +356,63 @@ def decoder_from_jax(variables, unflatten_hw=(8, 15)) -> dict:
     """``Decoder`` state dict from a flax Decoder tree of numpy arrays; its
     first Dense layer feeds a 512 x unflatten_hw map."""
     return vae_state_from_jax(variables, ("Dense_0",), "out", (512, *unflatten_hw))
+
+
+def _nest(tree: dict, path, leaf):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
+def vae_state_to_jax(state: dict, heads=(), side="in", chw=(0, 0, 0)) -> dict:
+    """Flax tree (``params``, and ``batch_stats`` with batch norm; numpy
+    leaves) of a port VAE part's state dict: the inverse of
+    ``vae_state_from_jax``."""
+    C, H, W = chw
+    out: dict = {"params": {}}
+    for key, t in state.items():
+        layer, leaf = key.rsplit(".", 1)
+        path = tuple(layer.split("."))
+        a = t.detach().cpu().numpy()
+        norm = f"{layer}.running_mean" in state
+        if leaf in ("running_mean", "running_var"):
+            _nest(out.setdefault("batch_stats", {}), path + (leaf[len("running_"):],), a)
+            continue
+        if leaf == "num_batches_tracked":
+            continue
+        head = path[-1] in heads
+        if leaf == "weight" and norm:
+            name = "scale"
+        elif leaf == "weight" and a.ndim == 4 and path[-1].startswith("ConvTransposeTorch"):
+            a, name = a[:, :, ::-1, ::-1].transpose(2, 3, 0, 1), "kernel"
+        elif leaf == "weight" and a.ndim == 4:
+            a, name = a.transpose(2, 3, 1, 0), "kernel"  # OIHW -> HWIO
+        elif leaf == "weight":
+            a, name = a.T, "kernel"
+            if head and side == "in":  # rows (c, h, w) -> (h, w, c)
+                a = a.reshape(C, H * W, -1).transpose(1, 0, 2).reshape(H * W * C, -1)
+            elif head:  # columns
+                a = a.reshape(-1, C, H * W).transpose(0, 2, 1).reshape(-1, H * W * C)
+        elif leaf == "bias":
+            name = "bias"
+            if head and side == "out":
+                a = a.reshape(C, H * W).T.reshape(-1)
+        else:
+            raise ValueError(f"unknown VAE state entry {key}")
+        _nest(out["params"], path + (name,), np.ascontiguousarray(a))
+    return out
+
+
+def encoder_to_jax(state: dict) -> dict:
+    """Flax Encoder tree of an ``Encoder`` state dict (inverse of
+    ``encoder_from_jax``)."""
+    return vae_state_to_jax(state, ("mean", "logvar"), "in", (512, 2, 2))
+
+
+def decoder_to_jax(state: dict, unflatten_hw=(8, 15)) -> dict:
+    """Flax Decoder tree of a ``Decoder`` state dict (inverse of
+    ``decoder_from_jax``)."""
+    return vae_state_to_jax(state, ("Dense_0",), "out", (512, *unflatten_hw))
 
 
 def vae_from_jax(variables, unflatten_hw=(8, 15)) -> dict:

@@ -145,7 +145,8 @@ def test_make_batched_step_matches_jax():
     convergence, whose residual reads the ill-determined lam / gam split,
     tests/test_torch_rti_step.py), and the stats equal
     to a reduction of the port's own results; replicate_inputs and
-    stack_tree against the JAX helpers; a mesh raises."""
+    stack_tree against the JAX helpers; a mesh that is not a parallel.Mesh
+    raises (the sharded step: tests/test_torch_sharding.py)."""
     from sdf_nmpc_tpu.nn import make_sdf_fn
     from sdf_nmpc_tpu.ocp import build_ocp as jbuild
     from sdf_nmpc_tpu.parallel import make_batched_step as jbatched
@@ -195,5 +196,5 @@ def test_make_batched_step_matches_jax():
         np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
     np.testing.assert_array_equal(stacked.X.numpy(), st.X.numpy())
     assert stack_tree([type(st)(X=st.X[0], U=st.U[0])] * 2).qp_duals is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         make_batched_step(tocp, tc, mesh=object())

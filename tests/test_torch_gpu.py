@@ -1203,3 +1203,35 @@ def test_loss_sdf_backward_on_card_matches_f64(cuda_device):
     assert float(((p32 - p64).abs() / p64.abs()).max()) <= 1e-4
     for name, want in g64.items():
         assert float((g32[name] - want).abs().max()) <= 2e-3 * float(want.abs().max()), name
+
+
+@pytest.mark.gpu
+def test_sharded_step_one_nccl_rank_matches_unsharded(cuda_device):
+    """make_batched_step over a one-rank NCCL group (initialize_multihost on
+    the loopback) at the dry run's sizes, B = 64: u0 and the statuses bit for
+    bit those of the unsharded step on the same inputs, the counts and the
+    largest KKT residual equal, the mean within 1e-6 relative, gather_batch
+    the rank's tensors, kernels 1-4 launched; the group destroyed."""
+    from sdf_nmpc_tpu_torch.cli.dryrun_multiprocess import build_dryrun, free_port
+    from sdf_nmpc_tpu_torch.parallel import (gather_batch, initialize_multihost,
+                                             make_batched_step, shard_batch, shutdown)
+
+    cfg, ocp, states, inputs = build_dryrun(64, cuda_device)
+    mesh = initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        to_card = lambda t: t.to(cuda_device)
+        want, want_stats = make_batched_step(ocp, cfg)(
+            type(states)(*[None if a is None else to_card(a) for a in states]),
+            type(inputs)(*map(to_card, inputs)))
+        before = {k: _count(k) for k in ("lin_y_sens", "sdf_fused_x3", "condense", "ip_phase")}
+        res, stats = make_batched_step(ocp, cfg, mesh=mesh)(shard_batch(states, mesh),
+                                                            shard_batch(inputs, mesh))
+        assert all(_count(k) > n for k, n in before.items())
+        assert torch.equal(gather_batch(res.u0, mesh), want.u0)
+        assert torch.equal(res.status, want.status)
+        assert int(stats.n_ok) == int(want_stats.n_ok) and int(stats.n_failed) == int(
+            want_stats.n_failed)
+        assert torch.equal(stats.max_kkt, want_stats.max_kkt)
+        assert abs(float(stats.mean_kkt) / float(want_stats.mean_kkt) - 1) <= 1e-6
+    finally:
+        shutdown()

@@ -1,7 +1,8 @@
 """The port's HDF5 dataset pipeline (data/h5.py) against the JAX package's:
 write -> merge -> load -> batches, as tests/test_h5.py; the merged file
 equal to the JAX package's bit for bit, the loaded images and labels
-(clip, depth -> range, the collision-mapping erosion) equal to its."""
+(clip, depth -> range, the collision-mapping erosion) equal to its; the
+port's .npz datasets read as the h5 file of the same arrays."""
 
 import numpy as np
 import pytest
@@ -95,6 +96,44 @@ def test_merge_attr_mismatch_rejected(tmp_path):
     _write_source(tmp_path / "c.h5", 2, seed=3, hfov=0.5)
     with pytest.raises(ValueError, match="hfov"):
         th5.merge_h5([tmp_path / "a.h5", tmp_path / "c.h5"], tmp_path / "m.h5")
+
+
+@pytest.mark.parametrize("is_depth", [True, False])
+def test_npz_dataset_reads_as_the_h5_file(tmp_path, is_depth):
+    """write_image_dataset's .npz (the port's data stage) against the same
+    arrays and attributes in an h5 file of the JAX data stage's layout
+    (scripts/train_prod_perception.py): the same metadata, through the JAX
+    reader too, and the same images and labels bit for bit, plain and
+    with seeded augmentation and the collision map."""
+    rng = np.random.default_rng(5)
+    imgs = rng.uniform(200.0, 5000.0, size=(10, 1, 30, 50)).astype(np.float32)
+    imgs[:, :, rng.integers(0, 30, 20), rng.integers(0, 50, 20)] = 0.0
+    attrs = dict(hfov=0.7592, vfov=0.4903, aspect_ratio=50 / 30, is_depth=is_depth,
+                 is_spherical=False)
+    th5.write_image_dataset(tmp_path / "d.npz", imgs[:7], imgs[7:], attrs)
+    with h5py.File(tmp_path / "d.hdf5", "w") as f:
+        f.create_group("train").create_dataset("images", data=imgs[:7])
+        f.create_group("test").create_dataset("images", data=imgs[7:])
+        for k, v in attrs.items():
+            f.attrs[k] = v
+
+    (a, va), meta = th5.train_dataset_from_h5(str(tmp_path), "d.npz", dmax=5.0, vae=True,
+                                              col_map=True, device="cpu")
+    (b, vb), hmeta = th5.train_dataset_from_h5(str(tmp_path), "d.hdf5", dmax=5.0, vae=True,
+                                               col_map=True, device="cpu")
+    jmeta = jh5.train_dataset_from_h5(str(tmp_path), "d.hdf5", dmax=5.0, vae=True,
+                                      col_map=True)[1]
+    assert meta == hmeta == jmeta and a.idx == b.idx and va.idx == vb.idx
+    a.set_augment_idx(range(0, len(a), 2))
+    b.set_augment_idx(range(0, len(b), 2))
+    for (x, lx), (y, ly) in zip(a.batches(2, torch.Generator().manual_seed(2), shuffle=True),
+                                b.batches(2, torch.Generator().manual_seed(2), shuffle=True)):
+        assert torch.equal(x, y) and torch.equal(lx, ly)
+    ds = th5.test_dataset_from_h5(str(tmp_path), "d.npz", dmax=5.0, device="cpu")[0]
+    hds = th5.test_dataset_from_h5(str(tmp_path), "d.hdf5", dmax=5.0, device="cpu")[0]
+    assert len(ds) == len(hds) == 3
+    for (x, lx), (y, ly) in zip(ds.batches(2), hds.batches(2)):
+        assert torch.equal(x, y) and torch.equal(lx, ly)
 
 
 def test_shuffle_needs_a_generator():
