@@ -11,8 +11,10 @@ BASELINE config 3 (a depth image through the trained encoder to the
 latent of config 4's step, and the image-fed mission tick; phase 18),
 config 4 at long horizons on the stage-wise QP (N = 60; phase 19), the
 closed loop (phase 20), the solver routes (phase 21), the training side
-(phase 22), the scale-out over torch.distributed (phase 23) and the
-training and evaluation pipelines (phase 24),
+(phase 22), the scale-out over torch.distributed (phase 23), the
+training and evaluation pipelines (phase 24) and the tools (the
+perception-to-command tick at B=1, the braking and stability analyses, the
+resolution shift, the trained decoder; phase 25),
 run through
 ``sdf_nmpc_tpu_torch``'s public entry points: the fused path (kernels 1-4,
 the default solver settings) and the composed QP path with
@@ -217,14 +219,29 @@ failure raises and exits non-zero before the result line:
    the eval statistics finite; each evaluation function (df_test's
    slices, df_viz_3d's projections, df_viz_img's trace, vae_test's panels)
    once on the smoke run's networks, finite.
+25. the tools (``--tools``): ``cli.e2e_tick`` with the trained encoder
+   (the random-init fallback refused): one tick's kernels 1-4 held against
+   their plain versions and timed (profiler kernel events), its u0 against
+   the port's f64 CPU steady step on the card's latent under the CI gate;
+   then ``e2e_tick.run`` (TOOLS_K chained ticks ended by one synchronize,
+   1 + TOOLS_REPEAT times, and the encode-only and solve-only chains),
+   launch counts set to 0 just before and read just after (kernels 1-3 once
+   a step, kernel 4 twice), every step's status OK and u0 finite, the stage
+   times and the end-to-end figure against the 10 ms period (no rule on
+   time); ``cli.find_amax``'s six modes (grid at its defaults, GRID_CHECK
+   seeded velocities of it against the f64 CPU bisection; mlp_fit and
+   mlp_eval at MLP_STEP); ``cli.find_rtilde`` against the f64 CPU value;
+   ``cli.resolution_shift`` at its 8 scenes against the same in f64 on the
+   CPU (SHIFT_RULE); the trained decoder in ``VaeRuntime.decode`` on config
+   3's 8 latents against the f64 CPU decoder (DECODER_RULE).
 
 The last lines are the ``kernels`` JSON (all nine kernels, kernel 2 as one
 row per route, each with its per-launch times ``launch_ms``; the rows of
 kernels 1, 3 and 9 carry each model's numbers under ``per_model``, and at
 top level att's (for kernel 9 att's under sdf_cost); the rows of kernels
 1-9 that the formulation extras, config 3, the long horizons, the
-closed loop, the training side's served network, the sharded step (23) and
-the learned closed loop (24) run carry those readings
+closed loop, the training side's served network, the sharded step (23),
+the learned closed loop (24) and the e2e tick (25) run carry those readings
 under ``per_path``, for 23 and 24 the launches alone (their wall times are
 in the phase reports); kernel 4's row ``launch_k_s`` and
 ``geometry``, kernel 2's rows (f32, f32x3, bf16, mixed) and the
@@ -264,8 +281,8 @@ print no result line):
     python3 chip_smoke.py --perception
         phases 1, 2 and 18: perception, BASELINE config 3.
     python3 chip_smoke.py --long-horizon | --closed-loop | --solver-routes | --training
-    python3 chip_smoke.py --scale-out | --pipelines
-        phases 1, 2 and 19 (20, 21, 22, 23, 24) alone.
+    python3 chip_smoke.py --scale-out | --pipelines | --tools
+        phases 1, 2 and 19 (20, 21, 22, 23, 24, 25) alone.
 """
 
 from __future__ import annotations
@@ -277,9 +294,18 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+
+from sdf_nmpc_tpu_torch.utils.timing import (
+    PartTimer,
+    cuda_ms,
+    peak_gib,
+    profiled_kernel_ms,
+    synced_ms,
+)
 
 SEED = 0
 CHECK_B = 1024  # scenarios of the kernel checks (phase 3)
@@ -589,35 +615,6 @@ class PlainSdf:
 
         sdf_fused.sdf_value_grad = self.saved
         return False
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean time of fn() on the card: CUDA events around reps runs, after
-    one warm-up run."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def profiled_kernel_ms(prof, names) -> dict:
-    """name -> the device ms of each launch of the port's kernel ``name``
-    in a profiled run, in launch order: the profiler's kernel events, read
-    by name as phase_profile reads them."""
-    from torch.autograd import DeviceType
-
-    out = {name: [] for name in names}
-    for e in sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start):
-        for name in names:
-            if f"{name}_kernel" in e.name:
-                out[name].append(e.time_range.elapsed_us() / 1e3)
-    return out
 
 
 def nbytes(*ts) -> int:
@@ -1109,31 +1106,14 @@ def tiled_inputs(ocp, cfg, layout, lat, B, seed, device):
                        WN=T(W[:, :ocp.nyN]), p=T(p))
 
 
-def bench_inputs(ocp, cfg, layout, B, seed, device):
-    """bench.py's workload: random starts near the origin, the trained
-    latents in turn, goal (2, 0, 0) with the constrained weights."""
+def bench_inputs(ocp, cfg, B, seed, device):
+    """bench.py's workload (``entry.bench_inputs``): random starts near the
+    origin, the trained latents in turn, goal (2, 0, 0) with the
+    constrained weights."""
+    from sdf_nmpc_tpu_torch.entry import bench_inputs as inputs
     from sdf_nmpc_tpu_torch.nn.weights import load_prod_latents
-    from sdf_nmpc_tpu_torch.ref_gen import Ref
-    from sdf_nmpc_tpu_torch.solver import SolveInputs
 
-    lat = load_prod_latents()
-    rng = np.random.default_rng(seed)
-    N = ocp.N
-    x0 = np.zeros((B, ocp.nx))
-    x0[:, 3] = 1.0
-    x0[:, :3] = rng.normal(size=(B, 3)) * 0.3
-    p = np.zeros((B, N + 1, layout.np_total))
-    layout.set_flag(p, 1.0)
-    layout.set_camera(p, np.zeros(3), np.eye(3))
-    layout.set_q_d(p, [1, 0, 0, 0])
-    p[..., layout.latent_start:] = lat[np.arange(B) % lat.shape[0]][:, None, :]
-    ref = Ref(cfg).use_constrained_weights(True)
-    ref.p = np.array([2.0, 0.0, 0.0])
-    yr, W = ocp.pack_ref(ref)
-    T = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
-    return SolveInputs(x0=T(x0), yref=T(np.tile(yr, (B, N, 1))), W=T(np.tile(W, (B, N, 1))),
-                       yrefN=T(np.tile(yr[:ocp.nyN], (B, 1))),
-                       WN=T(np.tile(W[:ocp.nyN], (B, 1))), p=T(p))
+    return inputs(ocp, cfg, B, load_prod_latents(), seed, device)
 
 
 def random_qp(B, nz, nc, seed, device):
@@ -1486,9 +1466,9 @@ def phase_main_path(dev, card, over=None, per_step=None, label="fused path", mod
     from sdf_nmpc_tpu_torch.solver import init_state, make_rti_step
     from sdf_nmpc_tpu_torch.utils import accuracy
 
-    cfg, ocp, layout, _ = accuracy.build_setup(device=dev, solver_over=over, model=model,
+    cfg, ocp, _, _ = accuracy.build_setup(device=dev, solver_over=over, model=model,
                                                variant=variant, N=N)
-    inputs = bench_inputs(ocp, cfg, layout, B, SEED, dev)
+    inputs = bench_inputs(ocp, cfg, B, SEED, dev)
     cold = make_rti_step(ocp, cfg, budget="cold", with_evals=False)
     steady = make_rti_step(ocp, cfg, budget="steady", with_evals=False)
     dws = bool(cfg.solver.get("dual_warm_start", False))
@@ -1964,8 +1944,8 @@ def phase_batched(dev, card):
     from sdf_nmpc_tpu_torch.solver import init_state
     from sdf_nmpc_tpu_torch.utils import accuracy
 
-    cfg, ocp, layout, _ = accuracy.build_setup(device=dev, solver_over=DWS)
-    inputs = bench_inputs(ocp, cfg, layout, MAIN_B, SEED, dev)
+    cfg, ocp, _, _ = accuracy.build_setup(device=dev, solver_over=DWS)
+    inputs = bench_inputs(ocp, cfg, MAIN_B, SEED, dev)
     step = make_batched_step(ocp, cfg)
     state = init_state(ocp, inputs.x0, dual_warm_start=True)
     _lib.reset_launch_counts()
@@ -2882,7 +2862,7 @@ def phase_long_horizon(dev, card) -> dict:
     if resolve_qp_backend(cfg, ocp.N) != "riccati":
         raise AssertionError(f"N={ocp.N}: qp_backend auto did not resolve to riccati")
     label = f"att riccati N={LONG_N}"
-    inputs = bench_inputs(ocp, cfg, layout, MAIN_B, SEED, dev)
+    inputs = bench_inputs(ocp, cfg, MAIN_B, SEED, dev)
     log(f"{label} (T = {cfg.mpc.T:g} s, auto -> riccati): one cold step, B={MAIN_B}")
     *_, errs, report[f"{label}, cold vs f64"] = cold_step_held(
         dev, card, label, cfg, ocp, inputs, ["lin_y_sens", "sdf_fused_x3"],
@@ -3211,45 +3191,6 @@ def training_scenes(n, dev):
         spheres=[(rng.uniform([1.0, -2.5, -1.0], [5.5, 2.5, 1.0]), rng.uniform(0.2, 0.8))
                  for _ in range(TRAIN_SPHERES)],
         boxes=[([-9.0, -9.0, -9.0], [9.0, 9.0, -1.2])], device=dev) for _ in range(n)])
-
-
-class PartTimer:
-    """CUDA events around each named part of a training step; ``ms(name)``
-    the mean over the steps after the first (its cuDNN and allocator warm-up)."""
-
-    def __init__(self):
-        self.events = {}
-
-    def __call__(self, name):
-        import contextlib
-
-        @contextlib.contextmanager
-        def part():
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            yield
-            end.record()
-            self.events.setdefault(name, []).append((start, end))
-
-        return part()
-
-    def ms(self, name):
-        torch.cuda.synchronize()
-        times = [s.elapsed_time(e) for s, e in self.events.get(name, [])]
-        return float(np.mean(times[1:] if len(times) > 1 else times)) if times else 0.0
-
-    def steps(self, name):
-        return len(self.events.get(name, []))
-
-
-def peak_gib(fn):
-    """(fn(), the peak device memory of the call in GiB)."""
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, torch.cuda.max_memory_allocated() / 2**30
 
 
 def gt_engine(dev, card, cfg) -> dict:
@@ -3588,15 +3529,6 @@ def rel_diff(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def synced_ms(fn):
-    """(fn(), its wall ms between two synchronizes)."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, (time.perf_counter() - t0) * 1e3
-
-
 def phase_scale_out(dev, card) -> dict:
     """Phase 23, scale-out (``--scale-out`` runs phases 1, 2 and this one
     alone): a one-rank NCCL group on the loopback (initialize_multihost),
@@ -3622,8 +3554,8 @@ def phase_scale_out(dev, card) -> dict:
     from sdf_nmpc_tpu_torch.utils import accuracy
 
     t0 = time.perf_counter()
-    cfg, ocp, layout, _ = accuracy.build_setup(device=dev)
-    inputs = bench_inputs(ocp, cfg, layout, SCALE_B, SEED, dev)
+    cfg, ocp, _, _ = accuracy.build_setup(device=dev)
+    inputs = bench_inputs(ocp, cfg, SCALE_B, SEED, dev)
     states = init_state(ocp, inputs.x0)
     report, per_path = {}, {}
     mesh = initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
@@ -3836,6 +3768,250 @@ def phase_pipelines(dev, card) -> dict:
     return {"per_path": per_path, "report": report}
 
 
+# ------------------------------------------------------------ phase 25
+
+TOOLS_K = 50  # chained e2e ticks per span (scripts/e2e_tick.py)
+TOOLS_REPEAT = 5  # spans per chain
+E2E_PER_SOLVE = {"lin_y_sens": 1, "sdf_fused_x3": 1, "condense": 1, "ip_phase": 2}
+GRID_CHECK = 4096  # seeded braking-grid velocities held against the f64 CPU bisection
+GRID_RTOL = 1e-9  # their a_max, relative: both f64 (ulps of the card's libm)
+RTILDE_RTOL = 1e-9  # r_tilde_max against the f64 CPU value, relative
+MLP_STEP = 0.2  # the grid step of mlp_fit / mlp_eval: at the default 0.05, 200 epochs of
+# batch 256 over its ~0.93 M velocities would be ~728 k Adam steps
+SHIFT_RULE = (1e-4, 1e-3, 5e-3)  # resolution_shift, card f32 vs CPU f64 on the same points:
+# latent statistics relative, NeuralDF drift statistics relative, flip share absolute
+DECODER_RULE = 1e-4  # card decoder vs the f64 CPU one: max |d| <= DECODER_RULE (1 + max |x|)
+
+
+def e2e_on_card(dev, card, part, peaks) -> tuple:
+    """Phase 25a: cli.e2e_tick with the trained encoder (refusing the
+    random-init fallback): one tick after a warm-up one, its kernels 1-4
+    held against their plain versions and timed (profiler kernel events),
+    its u0 against the port's f64 CPU steady step on the same latent under
+    the CI gate; then ``e2e_tick.run`` (TOOLS_K chained ticks x (1 +
+    TOOLS_REPEAT), the solve-only chain TOOLS_REPEAT times), launch counts
+    set to 0 just before and read just after: kernels 1-3 once a step,
+    kernel 4 twice, every status OK and u0 finite.  Returns (rows, report)."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdf_nmpc_tpu_torch.cli import e2e_tick
+    from sdf_nmpc_tpu_torch.ocp import build_ocp
+    from sdf_nmpc_tpu_torch.ops import _lib
+    from sdf_nmpc_tpu_torch.solver import SolveInputs, SolverState, make_rti_step
+    from sdf_nmpc_tpu_torch.utils import Stopwatch
+    from sdf_nmpc_tpu_torch.utils import accuracy as acc
+
+    setup = e2e_tick.prepare(dev)
+    if not setup.trained:
+        raise AssertionError("e2e tick: no trained encoder at the sensor's resolution")
+    tick, _ = e2e_tick.make_tick(setup)
+    img0 = torch.as_tensor(e2e_tick.host_frame(setup, Stopwatch()), device=dev)[None, None]
+    tick(img0, setup.state)  # warm-up: cuDNN's first call at this shape
+    torch.cuda.synchronize()
+    used = list(E2E_PER_SOLVE)
+    label = "e2e tick, B=1"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            Capture() as cap:
+        _lib.reset_launch_counts()
+        _, res = tick(img0, setup.state)
+        counts = dict(_lib.launch_counts)
+    launched_only(f"{label}, one tick", counts, used)
+    if any(counts[k] != n for k, n in E2E_PER_SOLVE.items()):
+        raise AssertionError(f"{label}: one tick launched {counts}")
+    errs = check_all(cap, label, sdf_route="sdf_fused_x3")
+    calls = {name: cap.args("sdf" if name == "sdf_fused_x3" else name) for name in used}
+    # the same tick in f64 on the CPU, from the card's latent
+    with torch.no_grad():
+        latent = setup.encoder(img0)[0].double().cpu()
+    cfg64 = setup.cfg.replace(solver=dict(dtype="float64"))
+    ocp64 = build_ocp(cfg64, sdf=copy.deepcopy(setup.ocp.sdf).double().cpu(), device="cpu")
+    inp64 = SolveInputs(*[t.double().cpu() for t in setup.inputs])
+    p64 = inp64.p.clone()
+    p64[:, :, setup.ocp.layout.latent_start:] = latent
+    st64 = SolverState(setup.state.X.double().cpu(), setup.state.U.double().cpu())
+    ref = make_rti_step(ocp64, cfg64, budget="steady", with_evals=False)(
+        st64, inp64._replace(p=p64))
+    err = float((res.u0.double().cpu() - ref.u0).abs().max())
+    ok = int(res.status[0]) == 0 and int(ref.status[0]) == 0 and acc.ci_gate_ok(err, err)
+    log(f"{label}: the first tick's u0 against the f64 CPU steady step on the card's latent: "
+        f"max {err:.3e}, CI gate {'pass' if ok else 'FAIL'}, strict <= {acc.CONTRACT_MAX}: "
+        f"{'pass' if err <= acc.CONTRACT_MAX else 'miss'}; card {card}")
+    if not ok:
+        raise AssertionError(f"{label}: the first tick against the f64 step failed")
+    # the whole run's launches
+    _lib.reset_launch_counts()
+    out = e2e_tick.run(K=TOOLS_K, repeat=TOOLS_REPEAT, setup=setup)
+    run_counts = dict(_lib.launch_counts)
+    launched_only(f"{label}, e2e_tick.run", run_counts, used)
+    want = {k: n * out["n_solves"] for k, n in E2E_PER_SOLVE.items()}
+    if any(run_counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"{label}: {out['n_solves']} steps launched {run_counts}, "
+                             f"expected {want}")
+    if out["n_ok"] != out["n_solves"] or not out["u0_finite"]:
+        raise AssertionError(f"{label}: {out['n_ok']}/{out['n_solves']} steps OK, u0 finite "
+                             f"{out['u0_finite']}")
+    log(f"kernel numbers, {label}: the launches of one tick")
+    rows = kernel_rows({k: fused_runs()[k] for k in used}, calls, run_counts, errs, peaks, part,
+                       {"sdf_fused_x3": (3.0, TF32_PEAKS[part])},
+                       device=profiled_kernel_ms(prof, used))
+    report = {k: out[k] for k in ("tick_ms", "tick_worst_ms", "encode_ms", "solve_ms",
+                                  "end_to_end_ms", "met", "first_chain_s", "n_solves", "host_us")}
+    report.update(first_tick_u0_err=err, launches=run_counts)
+    log(f"{label}: {out['n_solves']} steps all OK and finite; tick median "
+        f"{out['tick_ms']:.3f} ms, worst {out['tick_worst_ms']:.3f}, encode-only "
+        f"{out['encode_ms']:.3f}, solve-only {out['solve_ms']:.3f}, end to end "
+        f"{out['end_to_end_ms']:.3f} ms against the 10 ms period; card {card}")
+    return rows, report
+
+
+def braking_on_card(dev, card) -> dict:
+    """Phase 25b-c: cli.find_amax's six modes on the card into a temporary
+    directory (grid at its defaults, GRID_CHECK seeded velocities of it
+    against the f64 CPU bisection under GRID_RTOL; min_acc, poly_fit,
+    poly_eval; mlp_fit and mlp_eval on the grid at MLP_STEP), and
+    cli.find_rtilde against the f64 CPU value under RTILDE_RTOL."""
+    import tempfile
+
+    from sdf_nmpc_tpu_torch.cli import find_amax, find_rtilde
+    from sdf_nmpc_tpu_torch.config import default_config
+    from sdf_nmpc_tpu_torch.theory import get_r_tilde_max, max_braking_accel
+
+    cfg = default_config()
+    report = {}
+    with tempfile.TemporaryDirectory() as d:
+        ms = {}
+        for mode, step in (("grid", 0.05), ("min_acc", 0.05), ("poly_fit", 0.05),
+                           ("poly_eval", 0.05), ("grid", MLP_STEP), ("mlp_fit", MLP_STEP),
+                           ("mlp_eval", MLP_STEP)):
+            out, ms[f"{mode} {step:g}"] = synced_ms(
+                lambda: find_amax.run(cfg, mode, step=step, out_dir=d, device=dev))
+            report[f"{mode} {step:g}"] = {k: v for k, v in out.items()
+                                          if k not in ("path", "coeffs")}
+            if mode == "grid" and step == 0.05:
+                vel = np.load(Path(d) / "3_0.05_vel.npy")
+                bdist = np.load(Path(d) / "3_0.05_bdist.npy")
+        idx = np.random.default_rng(SEED + 25).choice(len(vel), GRID_CHECK, replace=False)
+        v = vel[idx]
+        norms = np.linalg.norm(v, axis=1)
+        a_cpu = max_braking_accel(v / norms[:, None], cfg, device="cpu")
+        a_card = 0.5 * norms ** 2 / bdist[idx]
+        grid_err = float(np.max(np.abs(a_card - a_cpu) / a_cpu))
+    finite = all(np.isfinite(x).all() for r in report.values() for x in r.values()
+                 if isinstance(x, (float, np.floating)))
+    log(f"25b find_amax on the card: grid {report['grid 0.05']['n']} velocities (vmax 3, step "
+        f"0.05) in {ms['grid 0.05']:.1f} ms, a_min {report['grid 0.05']['a_min']:.4f}; "
+        f"{GRID_CHECK} seeded of them against the f64 CPU bisection: max relative a_max "
+        f"difference {grid_err:.3e} (rule {GRID_RTOL}); min_acc {report['min_acc 0.05']['a_min']:.4f}"
+        f"; poly deg 4 rmse {report['poly_eval 0.05']['rmse']:.4f} max "
+        f"{report['poly_eval 0.05']['max_err']:.4f}; mlp at step {MLP_STEP} "
+        f"({report[f'grid {MLP_STEP:g}']['n']} velocities, 200 epochs of batch 256) loss "
+        f"{report[f'mlp_fit {MLP_STEP:g}']['loss']:.6f} in {ms[f'mlp_fit {MLP_STEP:g}']:.0f} ms, "
+        f"rmse {report[f'mlp_eval {MLP_STEP:g}']['rmse']:.4f} max "
+        f"{report[f'mlp_eval {MLP_STEP:g}']['max_err']:.4f}; ms per mode "
+        f"{ {k: round(v, 1) for k, v in ms.items()} }; card {card}")
+    if not (grid_err <= GRID_RTOL and finite):
+        raise AssertionError("25b: the braking grid differs from the f64 CPU bisection, or a "
+                             "reading is not finite")
+    r, r_ms = synced_ms(lambda: find_rtilde.main(["default", "--device", str(dev)]))
+    r_cpu = get_r_tilde_max(cfg, device="cpu")
+    r_err = abs(r - r_cpu) / abs(r_cpu)
+    log(f"25c find_rtilde on the card: r_tilde_max {r!r} in {r_ms:.1f} ms, the f64 CPU value "
+        f"{r_cpu!r}: relative difference {r_err:.3e} (rule {RTILDE_RTOL}); card {card}")
+    if not r_err <= RTILDE_RTOL:
+        raise AssertionError("25c: r_tilde_max differs from the f64 CPU value")
+    report.update(grid_check_rel_err=grid_err, ms=ms, r_tilde_max=r, r_tilde_rel_err=r_err)
+    return report
+
+
+def shift_on_card(dev, card) -> dict:
+    """Phase 25d: cli.resolution_shift at its 8 scenes on the card (f32),
+    and the same on the CPU in f64 on the card run's frustum points, held
+    under SHIFT_RULE."""
+    from sdf_nmpc_tpu_torch.cli import resolution_shift as rs
+    from sdf_nmpc_tpu_torch.data.pos_sampler import PosSampler
+
+    sampler = PosSampler(rs.DMAX, rs.HFOV, rs.VFOV, margin=30, device=dev)
+    pts = sampler.sample_pos_in_frustrum(torch.Generator(device=dev).manual_seed(0), rs.N_POINTS)
+    card_out, card_ms = synced_ms(lambda: rs.run(device=dev, points=pts))
+    cpu_out = rs.run(device="cpu", points=pts.double().cpu(), dtype=torch.float64)
+    lat_keys, df_keys = ("rel_l2_mean", "rel_l2_max", "cos_mean", "cos_min"), (
+        "df_mean", "df_p95", "df_max")
+    rel = lambda k: abs(card_out[k] - cpu_out[k]) / max(abs(cpu_out[k]), 1e-12)
+    lat_err, df_err = max(rel(k) for k in lat_keys), max(rel(k) for k in df_keys)
+    flip_err = abs(card_out["flip_share"] - cpu_out["flip_share"])
+    ok = lat_err <= SHIFT_RULE[0] and df_err <= SHIFT_RULE[1] and flip_err <= SHIFT_RULE[2]
+    log(f"25d resolution_shift, 8 scenes, {card_out['trained']} -> {card_out['alt']}: latent "
+        f"rel L2 mean {card_out['rel_l2_mean']:.4f} cosine mean {card_out['cos_mean']:.4f}, "
+        f"NeuralDF drift mean {card_out['df_mean']:.4f} m, flips "
+        f"{card_out['flip_share']:.2%} in {card_ms:.1f} ms; against the f64 CPU run on the same "
+        f"points: latent statistics {lat_err:.2e}, drift {df_err:.2e} relative, flip share "
+        f"{flip_err:.2e} (rules {SHIFT_RULE}): {'pass' if ok else 'FAIL'}; card {card}")
+    if not ok:
+        raise AssertionError("25d: resolution_shift on the card differs from the f64 CPU run")
+    return {"card": card_out, "cpu_f64": cpu_out, "ms": card_ms,
+            "errs": {"latent": lat_err, "df": df_err, "flip": flip_err}}
+
+
+def decoder_on_card(dev, card) -> dict:
+    """Phase 25e: the trained decoder (weights/vae_decoder.msgpack through
+    msgpack_restore and decoder_from_jax) in VaeRuntime.decode on the card,
+    on the latents of config 3's 8 scenes (the trained encoder on the card's
+    renders), against the f64 CPU decoder on the same latents under
+    DECODER_RULE; ms per decode (CUDA events)."""
+    from sdf_nmpc_tpu_torch.config import default_config
+    from sdf_nmpc_tpu_torch.nn.weights import load_prod_decoder
+    from sdf_nmpc_tpu_torch.perception import VaeRuntime
+    from sdf_nmpc_tpu_torch.utils import accuracy as acc
+
+    cfg = default_config()
+    enc = acc.config3_encoder(cfg, torch.float32, dev)
+    dec = load_prod_decoder(device=dev)
+    if dec is None:
+        raise AssertionError("25e: no trained decoder in weights/")
+    with torch.no_grad():
+        z = enc(acc.config3_images(cfg, torch.float32, dev)[:, None])
+    vae = VaeRuntime(cfg, enc, dec, device=dev)
+    imgs, ms = [], []
+    for row in z.cpu().numpy():
+        vae.set_latent(row)
+        imgs.append(vae.decode())
+        ms.append(cuda_ms(vae.decode, reps=3))
+    imgs = np.stack(imgs)
+    dec64 = load_prod_decoder(device="cpu").double()
+    with torch.no_grad():
+        ref = dec64(z.double().cpu())[:, 0].numpy()
+    err = float(np.abs(imgs - ref).max())
+    limit = DECODER_RULE * (1 + float(np.abs(ref).max()))
+    ok = imgs.shape == ref.shape == (len(z), *cfg.sensor.shape_imgs[-2:]) and err <= limit
+    log(f"25e trained decoder on the card (VaeRuntime.decode, f32) on config 3's {len(z)} "
+        f"latents against the f64 CPU decoder: max |d| {err:.3e} (limit {limit:.3e} = "
+        f"{DECODER_RULE} (1 + max |x| {float(np.abs(ref).max()):.3f})), {np.median(ms):.3f} ms a "
+        f"decode (CUDA events): {'pass' if ok else 'FAIL'}; card {card}")
+    if not ok:
+        raise AssertionError("25e: the trained decoder on the card beyond the rule")
+    return {"max_err": err, "limit": limit, "decode_ms": float(np.median(ms))}
+
+
+def phase_tools(dev, card) -> dict:
+    """Phase 25, the tools (``--tools`` runs phases 1, 2 and this one
+    alone): the e2e tick (25a), find_amax (25b), find_rtilde (25c),
+    resolution_shift (25d) and the trained decoder (25e).  Returns the
+    kernels' per-path rows and the report."""
+    t0 = time.perf_counter()
+    part, peaks = card_peaks(card.split(",")[0])
+    rows, report = e2e_on_card(dev, card, part, peaks)
+    per_path = {row["name"]: {"e2e tick, B=1": row} for row in rows}
+    report = {"e2e_tick": report, "braking": braking_on_card(dev, card),
+              "resolution_shift": shift_on_card(dev, card), "decoder": decoder_on_card(dev, card)}
+    report["wall_s"] = time.perf_counter() - t0
+    log(f"phase 25 (tools): {report['wall_s']:.1f} s wall; card {card}")
+    log(json.dumps({"tools": report}, default=lambda o: o.tolist() if hasattr(o, "tolist")
+                   else float(o) if isinstance(o, np.floating) else str(o)))
+    return {"per_path": per_path, "report": report}
+
+
 # source -> (its C functions, the kernels timed, the models whose steady
 # step gives the launches) for --ip-builds, --sdf-builds (kernel 2's three
 # sources), --qp-builds, --condense-builds, --lin-builds and --erk4-builds; a
@@ -3933,9 +4109,9 @@ def phase_builds(dev, card, source, dirs, rounds=3):
     calls = {kernel: [] for kernel in kernels}
     for model in models:
         for over in {str(build_over(k)): build_over(k) for k in kernels}.values():
-            cfg, ocp, layout, _ = accuracy.build_setup(
+            cfg, ocp, _, _ = accuracy.build_setup(
                 device=dev, solver_over=over, model=None if model == "att" else model)
-            inputs = bench_inputs(ocp, cfg, layout, MAIN_B, SEED, dev)
+            inputs = bench_inputs(ocp, cfg, MAIN_B, SEED, dev)
             state = make_rti_step(ocp, cfg, budget="cold", with_evals=False)(
                 init_state(ocp, inputs.x0, dual_warm_start=over is DWS), inputs).state
             with Capture() as cap:
@@ -4102,6 +4278,9 @@ def main(argv=None) -> int:
                     help="run only the scale-out on torch.distributed (phase 23), then stop")
     ap.add_argument("--pipelines", action="store_true",
                     help="run only the training and evaluation pipelines (phase 24), then stop")
+    ap.add_argument("--tools", action="store_true",
+                    help="run only the tools: the e2e tick, find_amax, find_rtilde, "
+                         "resolution_shift and the trained decoder (phase 25), then stop")
     args = ap.parse_args(argv)
     card = phase_card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4129,7 +4308,8 @@ def main(argv=None) -> int:
                         (args.solver_routes, phase_solver_routes),
                         (args.training, phase_training),
                         (args.scale_out, phase_scale_out),
-                        (args.pipelines, phase_pipelines)):
+                        (args.pipelines, phase_pipelines),
+                        (args.tools, phase_tools)):
         if flag:
             phase(dev, card)
             return 0
@@ -4173,6 +4353,7 @@ def main(argv=None) -> int:
     training = phase_training(dev, card)
     scale_out = phase_scale_out(dev, card)
     pipelines = phase_pipelines(dev, card)
+    tools = phase_tools(dev, card)
     for i, row in enumerate(rows):  # kernels 1 and 3: att's numbers, every model's beside
         if row["name"] in ("lin_y_sens", "condense"):
             rows[i] = kernel_row_per_model({"att": row, **per_kernel[row["name"]]}, "att")
@@ -4181,7 +4362,7 @@ def main(argv=None) -> int:
     for row in rows:  # the formulation extras' and config 3's readings of kernels 1-8
         for per_path in (extras["per_path"], perception["per_path"], long_horizon["per_path"],
                          closed_loop["per_path"], training["per_path"], scale_out["per_path"],
-                         pipelines["per_path"]):
+                         pipelines["per_path"], tools["per_path"]):
             if row["name"] in per_path:
                 row.setdefault("per_path", {}).update(per_path[row["name"]])
     print(json.dumps({"kernels": rows}), flush=True)

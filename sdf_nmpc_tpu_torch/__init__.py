@@ -4,11 +4,40 @@ Entry points take ``device=`` and default to ``"cuda"``.  On a machine with no
 CUDA device a call that did not ask for the CPU raises; it never carries on
 on the CPU.  On the CPU every kernel wrapper runs its plain PyTorch version;
 on a CUDA tensor it launches its hand-written kernel or raises.
+
+``Nmpc``, ``build_ocp``, ``default_config`` and ``load_config`` are exported
+here lazily (importing the package costs the import of torch alone), and
+``cache_dir()`` is the user cache the two packages share.
 """
 
 from __future__ import annotations
 
+import os
+from pathlib import Path
+
 import torch
+
+_LAZY = {"Nmpc": "controller", "build_ocp": "ocp", "default_config": "config",
+         "load_config": "config"}
+
+
+def __getattr__(name):
+    """Lazy convenience re-exports (keeps ``import sdf_nmpc_tpu_torch`` light)."""
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(f".{_LAZY[name]}", __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def cache_dir() -> Path:
+    """The user cache directory: ``$SDF_NMPC_TPU_CACHE``, else
+    ``~/.cache/sdf_nmpc_tpu``, created if absent.  The JAX package uses the
+    same directory, so fitted artifacts (``braking_dist/<cfg.name>/``) are
+    shared between the two."""
+    d = Path(os.environ.get("SDF_NMPC_TPU_CACHE", Path.home() / ".cache" / "sdf_nmpc_tpu"))
+    d.mkdir(parents=True, exist_ok=True)
+    return d
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -43,18 +43,18 @@ LAYERS = (16, 16, 16, 16)
 
 def build_dryrun(batch: int, device, dtype=None, latent: int = LATENT, layer_sizes=LAYERS,
                  cfg_overrides=None, seed: int = 0):
-    """(cfg, ocp, states, inputs) of the dry run: __graft_entry__._build's
-    workload at small sizes with a seeded random NeuralDF (torch's draw),
-    random starts near the origin, seeded latents, goal (2, 0, 0) with the
-    constrained weights; host tensors (numpy-made), the same on every rank."""
+    """(cfg, ocp, states, inputs) of the dry run: the flagship workload
+    (``entry.bench_inputs``) at small sizes with a seeded random NeuralDF
+    (torch's draw), random starts near the origin, seeded latents, goal
+    (2, 0, 0) with the constrained weights; host tensors (numpy-made), the
+    same on every rank."""
     import torch
 
     from ..config import default_config
+    from ..entry import bench_inputs
     from ..nn import NeuralDF
     from ..ocp import build_ocp
-    from ..params import ParamLayout
-    from ..ref_gen import Ref
-    from ..solver import SolveInputs, init_state
+    from ..solver import init_state
 
     over = cfg_overrides if cfg_overrides is not None else dict(mpc=dict(N=4),
                                                                 solver=dict(qp_iters=4))
@@ -63,25 +63,7 @@ def build_dryrun(batch: int, device, dtype=None, latent: int = LATENT, layer_siz
     net = NeuralDF(size_latent=latent, layer_sizes=layer_sizes,
                    generator=torch.Generator().manual_seed(seed))
     ocp = build_ocp(cfg, sdf=net.to(device=device, dtype=dt), sdf_max_df=1.0, device=device)
-    layout = ParamLayout.from_cfg(cfg)
-    rng = np.random.default_rng(seed)
-    N = ocp.N
-    x0 = np.zeros((batch, ocp.nx))
-    x0[:, 3] = 1.0
-    p = np.zeros((batch, N + 1, layout.np_total))
-    for i in range(batch):  # the JAX _build's draw order: start, then latent
-        x0[i, :3] = rng.normal(size=3) * 0.3
-        layout.set_latent(p[i], rng.normal(size=latent) * 0.1)
-    layout.set_flag(p, 1.0)
-    layout.set_camera(p, np.zeros(3), np.eye(3))
-    layout.set_q_d(p, [1, 0, 0, 0])
-    ref = Ref(cfg).use_constrained_weights(True)
-    ref.p = np.array([2.0, 0.0, 0.0])
-    yr, W = ocp.pack_ref(ref)
-    T = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dt)
-    inputs = SolveInputs(x0=T(x0), yref=T(np.tile(yr, (batch, N, 1))),
-                         W=T(np.tile(W, (batch, N, 1))), yrefN=T(np.tile(yr[:ocp.nyN], (batch, 1))),
-                         WN=T(np.tile(W[:ocp.nyN], (batch, 1))), p=T(p))
+    inputs = bench_inputs(ocp, cfg, batch, None, seed, device="cpu", dtype=dt)
     return cfg, ocp, init_state(ocp, inputs.x0, dt), inputs
 
 

@@ -4,7 +4,8 @@ Counterpart of sdf_nmpc_tpu/nn/mlp.py ``Mlp``: Dense layers of
 ``layer_sizes``, each followed by ``inner_act`` and dropout (off at eval),
 then a Dense head of ``size_out`` and ``out_act``.  Layers are named
 ``Dense_0``, ``Dense_1``, ... as flax names them, so ``mlp_params_from_flax``
-carries a flax parameter tree across by name.  torch needs the input width,
+carries a flax parameter tree across by name (``mlp_params_to_flax`` back).
+torch needs the input width,
 which flax infers at init: ``size_in``.
 """
 
@@ -53,3 +54,12 @@ def mlp_params_from_flax(tree) -> dict:
                                                             order="C"))
         state[f"{name}.bias"] = torch.from_numpy(np.array(layer["bias"], order="C"))
     return state
+
+
+def mlp_params_to_flax(state: dict) -> dict:
+    """Flax ``Mlp`` variables ``{'params': {'Dense_i': {'kernel', 'bias'}}}``
+    (numpy) of an Mlp state dict: the inverse of ``mlp_params_from_flax``."""
+    to_np = lambda t: t.detach().cpu().numpy()
+    layers = sorted({key.rsplit(".", 1)[0] for key in state}, key=lambda n: int(n.split("_")[1]))
+    return {"params": {name: {"kernel": np.ascontiguousarray(to_np(state[f"{name}.weight"]).T),
+                              "bias": to_np(state[f"{name}.bias"])} for name in layers}}

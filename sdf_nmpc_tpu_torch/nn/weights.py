@@ -18,7 +18,8 @@ unflipped (in, out, kh, kw), BatchNorm scale / bias / batch_stats -> weight
 order to torch's (c, h, w); ``vae_from_jax`` the whole Vae.
 ``opt_state_from_jax`` carries optax's AdamW state across to torch's.
 ``params_to_jax``, ``encoder_to_jax`` and ``decoder_to_jax`` go the other
-way, for the artifacts the training pipelines write.
+way, for the artifacts the training pipelines write.  ``load_prod_sdf``,
+``load_prod_encoder`` and ``load_prod_decoder`` read the trained networks.
 """
 
 from __future__ import annotations
@@ -484,3 +485,22 @@ def load_prod_encoder(weights_dir=None, expect_img=None, strict=False, device="c
     module.load_state_dict(encoder_from_jax(msgpack_restore(
         (d / "vae_encoder.msgpack").read_bytes())))
     return module.eval().to(dev), meta
+
+
+def load_prod_decoder(weights_dir=None, device="cuda"):
+    """The trained VAE decoder (``weights/vae_decoder.msgpack``, flax's
+    tree) in eval mode on ``device``, or None if absent; its image shape
+    and batch norm from the meta."""
+    from .vae import Decoder
+
+    dev = resolve_device(device)
+    d = Path(weights_dir) if weights_dir else WEIGHTS_DIR
+    meta = _meta(d)
+    if meta is None or not (d / "vae_decoder.msgpack").exists():
+        return None
+    module = Decoder(1, meta["size_latent"], (1, *meta_img_shape(meta)), dropout_rate=0.0,
+                     batchnorm=bool(meta.get("batchnorm", False)))
+    module.load_state_dict(decoder_from_jax(msgpack_restore(
+        (d / "vae_decoder.msgpack").read_bytes())))
+    return module.eval().to(dev)
+

@@ -1235,3 +1235,52 @@ def test_sharded_step_one_nccl_rank_matches_unsharded(cuda_device):
         assert abs(float(stats.mean_kkt) / float(want_stats.mean_kkt) - 1) <= 1e-6
     finally:
         shutdown()
+
+
+@pytest.mark.gpu
+def test_e2e_chain_on_card(cuda_device):
+    """cli.e2e_tick at the flagship widths with the trained encoder: one
+    run of K = 5 chained ticks (1 + 1 spans, and the solve-only chain once):
+    every step OK and finite, kernels 1-3 launched once a step and kernel 4
+    twice."""
+    from sdf_nmpc_tpu_torch.cli import e2e_tick
+    from sdf_nmpc_tpu_torch.ops import _lib
+
+    setup = e2e_tick.prepare(cuda_device)
+    assert setup.trained
+    _lib.reset_launch_counts()
+    out = e2e_tick.run(K=5, repeat=1, setup=setup)
+    assert out["n_solves"] == 5 * 3 == out["n_ok"] and out["u0_finite"]
+    per = {"lin_y_sens": 1, "sdf_fused_x3": 1, "condense": 1, "ip_phase": 2}
+    assert {k: _count(k) for k in per} == {k: n * out["n_solves"] for k, n in per.items()}
+
+
+@pytest.mark.gpu
+def test_trained_decoder_on_card_matches_f64(cuda_device):
+    """The trained decoder (weights/vae_decoder.msgpack) on the card in f32
+    on 2 seeded latents of the trained latents' scale, against the f64 CPU
+    decoder: max |d| <= 1e-4 (1 + max |x|), chip_smoke.py's DECODER_RULE."""
+    from sdf_nmpc_tpu_torch.nn.weights import load_prod_decoder, load_prod_latents
+
+    lat = load_prod_latents()[:2]
+    z = torch.as_tensor(lat, dtype=torch.float32)
+    with torch.no_grad():
+        got = load_prod_decoder(device=cuda_device)(z.to(cuda_device)).double().cpu()
+        want = load_prod_decoder(device="cpu").double()(z.double())
+    assert got.shape == want.shape == (2, 1, 270, 480)
+    assert float((got - want).abs().max()) <= 1e-4 * (1 + float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_braking_grid_on_card_matches_f64(cuda_device):
+    """theory.braking_grid at step 0.5 (vmax 3) on the card against the CPU,
+    both f64: a_max within 1e-9 relative, the velocities equal."""
+    from sdf_nmpc_tpu_torch.config import default_config
+    from sdf_nmpc_tpu_torch.theory import braking_grid
+
+    cfg = default_config()
+    vel, bdist, amax = braking_grid(cfg, 3.0, 0.5, device=cuda_device)
+    vel_c, bdist_c, amax_c = braking_grid(cfg, 3.0, 0.5, device="cpu")
+    np.testing.assert_array_equal(vel, vel_c)
+    np.testing.assert_allclose(amax, amax_c, rtol=1e-9, atol=0)
+    np.testing.assert_allclose(bdist, bdist_c, rtol=1e-9, atol=0)
