@@ -1,0 +1,8 @@
+"""idle_share.fleet: the share of the profiled window of ticks in which no
+operation ran on the device (the union of the trace's device intervals)."""
+
+
+def read(ctx):
+    if ctx.trace is None or not ctx.trace.device_ops:
+        return None
+    return 100.0 * ctx.trace.idle_share()
