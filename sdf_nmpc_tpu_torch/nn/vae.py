@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.timing import span
 from .dropout import Dropout
 from .resnet import ConvTransposeTorch, ResBlock, ResBlockDeconv, init_from
 
@@ -67,10 +68,12 @@ class Encoder(nn.Module):
         return x.flatten(1)
 
     def forward(self, x, with_logvar: bool = False):
-        """x: (B, 1, H, W).  The latent mean, or (mean, logvar)."""
-        feats = self.features(x)
-        mean = self.mean(feats)
-        return (mean, self.logvar(feats)) if with_logvar else mean
+        """x: (B, 1, H, W).  The latent mean, or (mean, logvar) (the profiler
+        span ``nmpc.perception.encoder``)."""
+        with span("nmpc.perception.encoder"):
+            feats = self.features(x)
+            mean = self.mean(feats)
+            return (mean, self.logvar(feats)) if with_logvar else mean
 
 
 def sample_latent(mean, logvar, num_samples: int = 1,

@@ -6,12 +6,15 @@ object file, all sources at once in parallel, and links them into
 and the flags.  The library is loaded with ``ctypes``; nothing here includes
 PyTorch's headers.  The build happens at first use, never at import.
 
-``launch_counts`` holds one plain integer per kernel; each wrapper adds one
-where it launches its kernel, and nowhere else.
+``launch_counts`` holds one plain integer per kernel.  Each wrapper runs its
+checks, allocations and launch inside ``with launch(key):``, which opens the
+profiler span ``nmpc.kernel.<key>`` and adds one to the count when the block
+ends without raising, and nowhere else.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -21,6 +24,8 @@ import subprocess
 from pathlib import Path
 
 import torch
+
+from ..utils.timing import span
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -69,6 +74,15 @@ _SIGNATURES = {
     "stiff_resolve_launch": [_P] * 6 + [_I] * 4 + [_P],
     "stiff_resolve_geometry": [_I] * 3 + [_P] * 3,
 }
+
+
+@contextlib.contextmanager
+def launch(key: str):
+    """The span ``nmpc.kernel.<key>`` around a wrapper's launch; one more in
+    ``launch_counts[key]`` once the block has run without raising."""
+    with span(f"nmpc.kernel.{key}"):
+        yield
+    launch_counts[key] += 1
 
 
 def reset_launch_counts():

@@ -80,24 +80,24 @@ def condense_geometry(N, nx, nu, ny, nh) -> dict:
 
 
 def _condense_cuda(A, Bm, d, e0, Jyx, Jyu, res, Jhx, Jhu, h):
-    B, N, nx = d.shape
-    nu, ny, nh = Bm.shape[-1], Jyx.shape[2], Jhx.shape[2]
-    nz = N * nu
-    _check_sizes(N, nx, nu, nh)
-    ins = (A, Bm, d, e0, Jyx, Jyu, res, Jhx, Jhu, h)
-    _lib.require_cuda_f32("condense", *ins)
-    shapes = ((B, N, nx, nx), (B, N, nx, nu), (B, N, nx), (B, nx), (B, N, ny, nx),
-              (B, N, ny, nu), (B, N, ny), (B, N, nh, nx), (B, N, nh, nu), (B, N, nh))
-    for i, (t, s) in enumerate(zip(ins, shapes)):
-        _lib.require_shape(f"condense argument {i}", t, s)
-    new = lambda *s: torch.empty(s, dtype=torch.float32, device=A.device)
-    outs = (new(B, N, nx), new(B, N, nx, nz), new(B, nx), new(B, nx, nz),
-            new(B, N, ny, nz), new(B, N, ny), new(B, N, nh, nz), new(B, N, nh))
-    err = _lib.library().condense_launch(
-        *[t.data_ptr() for t in ins + outs], B, N, nx, nu, ny, nh, _lib.stream_ptr())
-    _lib.check(err, "condense")
-    _lib.launch_counts["condense"] += 1
-    return outs
+    with _lib.launch("condense"):
+        B, N, nx = d.shape
+        nu, ny, nh = Bm.shape[-1], Jyx.shape[2], Jhx.shape[2]
+        nz = N * nu
+        _check_sizes(N, nx, nu, nh)
+        ins = (A, Bm, d, e0, Jyx, Jyu, res, Jhx, Jhu, h)
+        _lib.require_cuda_f32("condense", *ins)
+        shapes = ((B, N, nx, nx), (B, N, nx, nu), (B, N, nx), (B, nx), (B, N, ny, nx),
+                  (B, N, ny, nu), (B, N, ny), (B, N, nh, nx), (B, N, nh, nu), (B, N, nh))
+        for i, (t, s) in enumerate(zip(ins, shapes)):
+            _lib.require_shape(f"condense argument {i}", t, s)
+        new = lambda *s: torch.empty(s, dtype=torch.float32, device=A.device)
+        outs = (new(B, N, nx), new(B, N, nx, nz), new(B, nx), new(B, nx, nz),
+                new(B, N, ny, nz), new(B, N, ny), new(B, N, nh, nz), new(B, N, nh))
+        err = _lib.library().condense_launch(
+            *[t.data_ptr() for t in ins + outs], B, N, nx, nu, ny, nh, _lib.stream_ptr())
+        _lib.check(err, "condense")
+        return outs
 
 
 def condense(A, Bm, d, e0, Jyx, Jyu, res, Jhx, Jhu, h):

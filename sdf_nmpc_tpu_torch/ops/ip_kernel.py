@@ -352,34 +352,34 @@ def ip_phase_plain(data, state, k_s, n_iters, it0, consts, n_tail=0):
 
 
 def _ip_phase_cuda(data, state, k_s, n_iters, it0, consts, n_tail=0):
-    H, C = data[0], data[1]
-    B, nz = H.shape[0], H.shape[-1]
-    nc = C.shape[1]
-    if k_s % 8 != 0 or k_s > nc:
-        raise NotImplementedError(
-            f"ip_phase kernel needs k_stiff % 8 == 0 and k_stiff <= nc, got k={k_s}, nc={nc} "
-            "(`dual_warm_start`, an unaligned `qp_stiff_k` or `chol_impl: pallas` take the "
-            "composed QP path)")
-    if nz > 256 or nc > 256:
-        raise ValueError(f"ip_phase kernel takes nz, nc <= 256, got {nz}, {nc}")
-    _lib.require_cuda_f32("ip_phase", *data, *state)
-    shapes = [(B, nz, nz), (B, nc, nz), (B, nz), (B, nc), (B, nc), (B, nc), (B, nc),
-              (B, nc), (B, nz), (B, nz)]
-    shapes += [(B, nz)] + [(B, nc)] * 6 + [(B, nz), (B, nz), (B,), (B, nz), (B,), (B, nz)]
-    for i, (t, s) in enumerate(zip(tuple(data) + tuple(state), shapes)):
-        _lib.require_shape(f"ip_phase argument {i}", t, s)
-    out = tuple(torch.empty_like(s) for s in state)
-    ptrs_in = (ctypes.c_void_p * 13)(*[s.data_ptr() for s in state])
-    ptrs_out = (ctypes.c_void_p * 13)(*[s.data_ptr() for s in out])
-    err = _lib.library().ip_phase_launch(
-        *[t.data_ptr() for t in data],
-        ctypes.cast(ptrs_in, ctypes.c_void_p), ctypes.cast(ptrs_out, ctypes.c_void_p),
-        B, nz, nc, k_s, n_iters, it0, n_tail,
-        consts["ratio_cap"], consts["mu_min"], consts["p_floor"], consts["d_floor"],
-        consts["tau"], _lib.stream_ptr())
-    _lib.check(err, "ip_phase")
-    _lib.launch_counts["ip_phase"] += 1
-    return out
+    with _lib.launch("ip_phase"):
+        H, C = data[0], data[1]
+        B, nz = H.shape[0], H.shape[-1]
+        nc = C.shape[1]
+        if k_s % 8 != 0 or k_s > nc:
+            raise NotImplementedError(
+                f"ip_phase kernel needs k_stiff % 8 == 0 and k_stiff <= nc, got k={k_s}, nc={nc} "
+                "(`dual_warm_start`, an unaligned `qp_stiff_k` or `chol_impl: pallas` take the "
+                "composed QP path)")
+        if nz > 256 or nc > 256:
+            raise ValueError(f"ip_phase kernel takes nz, nc <= 256, got {nz}, {nc}")
+        _lib.require_cuda_f32("ip_phase", *data, *state)
+        shapes = [(B, nz, nz), (B, nc, nz), (B, nz), (B, nc), (B, nc), (B, nc), (B, nc),
+                  (B, nc), (B, nz), (B, nz)]
+        shapes += [(B, nz)] + [(B, nc)] * 6 + [(B, nz), (B, nz), (B,), (B, nz), (B,), (B, nz)]
+        for i, (t, s) in enumerate(zip(tuple(data) + tuple(state), shapes)):
+            _lib.require_shape(f"ip_phase argument {i}", t, s)
+        out = tuple(torch.empty_like(s) for s in state)
+        ptrs_in = (ctypes.c_void_p * 13)(*[s.data_ptr() for s in state])
+        ptrs_out = (ctypes.c_void_p * 13)(*[s.data_ptr() for s in out])
+        err = _lib.library().ip_phase_launch(
+            *[t.data_ptr() for t in data],
+            ctypes.cast(ptrs_in, ctypes.c_void_p), ctypes.cast(ptrs_out, ctypes.c_void_p),
+            B, nz, nc, k_s, n_iters, it0, n_tail,
+            consts["ratio_cap"], consts["mu_min"], consts["p_floor"], consts["d_floor"],
+            consts["tau"], _lib.stream_ptr())
+        _lib.check(err, "ip_phase")
+        return out
 
 
 def ip_phase_geometry(nz, nc, k_s) -> dict:

@@ -68,24 +68,24 @@ def lin_y_sens_plain(model, X, U, dt, P, yref):
 
 
 def _lin_y_sens_cuda(model, layout, X, U, dt, P, yref):
-    model_id = _model_id("lin_y_sens", model)
-    M, nx = X.shape
-    nu, ny = U.shape[-1], yref.shape[-1]
-    if (nx, nu, ny) != (10, 4, 11):
-        raise ValueError(f"lin_y_sens kernel is built for (nx, nu, ny) = (10, 4, 11), got "
-                         f"{(nx, nu, ny)}")
-    qd = P[:, list(layout.q_d)].contiguous()
-    _lib.require_cuda_f32("lin_y_sens", X, U, dt, qd, yref)
-    for name, t, shape in (("U", U, (M, nu)), ("dt", dt, (M,)), ("yref", yref, (M, ny))):
-        _lib.require_shape(f"lin_y_sens {name}", t, shape)
-    new = lambda *s: torch.empty((M,) + s, dtype=torch.float32, device=X.device)
-    out = (new(nx), new(nx, nx), new(nx, nu), new(ny), new(ny, nx), new(ny, nu))
-    err = _lib.library().lin_y_sens_launch(
-        *[t.data_ptr() for t in (X, U, dt, qd, yref, *out)], M, model_id, _consts(model),
-        N_KERNEL_CONSTS, _lib.stream_ptr())
-    _lib.check(err, "lin_y_sens")
-    _lib.launch_counts["lin_y_sens"] += 1
-    return out
+    with _lib.launch("lin_y_sens"):
+        model_id = _model_id("lin_y_sens", model)
+        M, nx = X.shape
+        nu, ny = U.shape[-1], yref.shape[-1]
+        if (nx, nu, ny) != (10, 4, 11):
+            raise ValueError(f"lin_y_sens kernel is built for (nx, nu, ny) = (10, 4, 11), got "
+                             f"{(nx, nu, ny)}")
+        qd = P[:, list(layout.q_d)].contiguous()
+        _lib.require_cuda_f32("lin_y_sens", X, U, dt, qd, yref)
+        for name, t, shape in (("U", U, (M, nu)), ("dt", dt, (M,)), ("yref", yref, (M, ny))):
+            _lib.require_shape(f"lin_y_sens {name}", t, shape)
+        new = lambda *s: torch.empty((M,) + s, dtype=torch.float32, device=X.device)
+        out = (new(nx), new(nx, nx), new(nx, nu), new(ny), new(ny, nx), new(ny, nu))
+        err = _lib.library().lin_y_sens_launch(
+            *[t.data_ptr() for t in (X, U, dt, qd, yref, *out)], M, model_id, _consts(model),
+            N_KERNEL_CONSTS, _lib.stream_ptr())
+        _lib.check(err, "lin_y_sens")
+        return out
 
 
 def lin_y_sens_geometry(model) -> dict:
@@ -109,23 +109,23 @@ def erk4_sens_plain(model, X, U, dt):
 
 
 def _erk4_sens_cuda(model, X, U, dt):
-    model_id = _model_id("erk4_sens", model)
-    M, nx = X.shape
-    nu = U.shape[-1]
-    if (nx, nu) != (model.nx, 4):
-        raise ValueError(f"erk4_sens for {model.name!r} takes (nx, nu) = ({model.nx}, 4), got "
-                         f"{(nx, nu)}")
-    _lib.require_cuda_f32("erk4_sens", X, U, dt)
-    _lib.require_shape("erk4_sens U", U, (M, nu))
-    _lib.require_shape("erk4_sens dt", dt, (M,))
-    new = lambda *s: torch.empty((M,) + s, dtype=torch.float32, device=X.device)
-    out = (new(nx), new(nx, nx), new(nx, nu))
-    err = _lib.library().erk4_sens_launch(
-        *[t.data_ptr() for t in (X, U, dt, *out)], M, model_id, _consts(model),
-        N_KERNEL_CONSTS, _lib.stream_ptr())
-    _lib.check(err, "erk4_sens")
-    _lib.launch_counts["erk4_sens"] += 1
-    return out
+    with _lib.launch("erk4_sens"):
+        model_id = _model_id("erk4_sens", model)
+        M, nx = X.shape
+        nu = U.shape[-1]
+        if (nx, nu) != (model.nx, 4):
+            raise ValueError(f"erk4_sens for {model.name!r} takes (nx, nu) = ({model.nx}, 4), got "
+                             f"{(nx, nu)}")
+        _lib.require_cuda_f32("erk4_sens", X, U, dt)
+        _lib.require_shape("erk4_sens U", U, (M, nu))
+        _lib.require_shape("erk4_sens dt", dt, (M,))
+        new = lambda *s: torch.empty((M,) + s, dtype=torch.float32, device=X.device)
+        out = (new(nx), new(nx, nx), new(nx, nu))
+        err = _lib.library().erk4_sens_launch(
+            *[t.data_ptr() for t in (X, U, dt, *out)], M, model_id, _consts(model),
+            N_KERNEL_CONSTS, _lib.stream_ptr())
+        _lib.check(err, "erk4_sens")
+        return out
 
 
 def erk4_sens_geometry(model) -> dict:

@@ -88,14 +88,14 @@ def _check(name, tensors, shapes):
 
 
 def _factor_solve_cuda(M, RHS):
-    B, n, r = M.shape[0], M.shape[-1], RHS.shape[1]
-    _check("factor_solve", (M, RHS), ((B, n, n), (B, r, n)))
-    X, L = torch.empty_like(RHS), torch.empty_like(M)
-    err = _lib.library().factor_solve_launch(M.data_ptr(), RHS.data_ptr(), X.data_ptr(),
-                                             L.data_ptr(), B, n, r, _lib.stream_ptr())
-    _lib.check(err, "factor_solve")
-    _lib.launch_counts["factor_solve"] += 1
-    return X, L
+    with _lib.launch("factor_solve"):
+        B, n, r = M.shape[0], M.shape[-1], RHS.shape[1]
+        _check("factor_solve", (M, RHS), ((B, n, n), (B, r, n)))
+        X, L = torch.empty_like(RHS), torch.empty_like(M)
+        err = _lib.library().factor_solve_launch(M.data_ptr(), RHS.data_ptr(), X.data_ptr(),
+                                                 L.data_ptr(), B, n, r, _lib.stream_ptr())
+        _lib.check(err, "factor_solve")
+        return X, L
 
 
 def factor_solve_geometry(n, r) -> dict:
@@ -115,39 +115,40 @@ def stiff_resolve_geometry(n, r, k) -> dict:
 
 
 def _solve_cuda(L, RHS):
-    B, n, r = L.shape[0], L.shape[-1], RHS.shape[1]
-    _check("solve", (L, RHS), ((B, n, n), (B, r, n)))
-    X = torch.empty_like(RHS)
-    err = _lib.library().solve_launch(L.data_ptr(), RHS.data_ptr(), X.data_ptr(), B, n, r,
-                                      _lib.stream_ptr())
-    _lib.check(err, "solve")
-    _lib.launch_counts["solve"] += 1
-    return X
+    with _lib.launch("solve"):
+        B, n, r = L.shape[0], L.shape[-1], RHS.shape[1]
+        _check("solve", (L, RHS), ((B, n, n), (B, r, n)))
+        X = torch.empty_like(RHS)
+        err = _lib.library().solve_launch(L.data_ptr(), RHS.data_ptr(), X.data_ptr(), B, n, r,
+                                          _lib.stream_ptr())
+        _lib.check(err, "solve")
+        return X
 
 
 def _stiff_factor_solve_cuda(A, RHS, Cs, ds_inv):
-    B, n, r, k = A.shape[0], A.shape[-1], RHS.shape[1], Cs.shape[1]
-    _check("stiff_factor_solve", (A, RHS, Cs, ds_inv), ((B, n, n), (B, r, n), (B, k, n), (B, k)))
-    X, L, Xs = torch.empty_like(RHS), torch.empty_like(A), torch.empty_like(Cs)
-    Lt = torch.empty((B, k, k), dtype=A.dtype, device=A.device)
-    err = _lib.library().stiff_factor_solve_launch(
-        *[t.data_ptr() for t in (A, RHS, Cs, ds_inv, X, L, Xs, Lt)], B, n, r, k,
-        _lib.stream_ptr())
-    _lib.check(err, "stiff_factor_solve")
-    _lib.launch_counts["stiff_factor_solve"] += 1
-    return X, (L, Xs, Lt)
+    with _lib.launch("stiff_factor_solve"):
+        B, n, r, k = A.shape[0], A.shape[-1], RHS.shape[1], Cs.shape[1]
+        _check("stiff_factor_solve", (A, RHS, Cs, ds_inv),
+               ((B, n, n), (B, r, n), (B, k, n), (B, k)))
+        X, L, Xs = torch.empty_like(RHS), torch.empty_like(A), torch.empty_like(Cs)
+        Lt = torch.empty((B, k, k), dtype=A.dtype, device=A.device)
+        err = _lib.library().stiff_factor_solve_launch(
+            *[t.data_ptr() for t in (A, RHS, Cs, ds_inv, X, L, Xs, Lt)], B, n, r, k,
+            _lib.stream_ptr())
+        _lib.check(err, "stiff_factor_solve")
+        return X, (L, Xs, Lt)
 
 
 def _stiff_resolve_cuda(L, Xs, Lt, Cs, RHS):
-    B, n, r, k = L.shape[0], L.shape[-1], RHS.shape[1], Cs.shape[1]
-    _check("stiff_resolve", (L, Xs, Lt, Cs, RHS),
-           ((B, n, n), (B, k, n), (B, k, k), (B, k, n), (B, r, n)))
-    X = torch.empty_like(RHS)
-    err = _lib.library().stiff_resolve_launch(
-        *[t.data_ptr() for t in (L, Cs, Xs, Lt, RHS, X)], B, n, r, k, _lib.stream_ptr())
-    _lib.check(err, "stiff_resolve")
-    _lib.launch_counts["stiff_resolve"] += 1
-    return X
+    with _lib.launch("stiff_resolve"):
+        B, n, r, k = L.shape[0], L.shape[-1], RHS.shape[1], Cs.shape[1]
+        _check("stiff_resolve", (L, Xs, Lt, Cs, RHS),
+               ((B, n, n), (B, k, n), (B, k, k), (B, k, n), (B, r, n)))
+        X = torch.empty_like(RHS)
+        err = _lib.library().stiff_resolve_launch(
+            *[t.data_ptr() for t in (L, Cs, Xs, Lt, RHS, X)], B, n, r, k, _lib.stream_ptr())
+        _lib.check(err, "stiff_resolve")
+        return X
 
 
 def factor_solve(M, RHS):

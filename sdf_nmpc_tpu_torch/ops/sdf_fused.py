@@ -241,23 +241,23 @@ def _kernel_weights(packed) -> dict:
 
 
 def _sdf_value_grad_cuda(packed, pos, latent):
-    P = pos.shape[0]
-    kw = _kernel_weights(packed)
-    emb, demb = embed_with_tangents(packed["embed_fn"], pos)
-    emb, demb = emb.contiguous(), demb.contiguous()
-    weights = [kw[k] for k in ("W1", "b1", "W2", "b2", "W3", "b3", "W4", "b4", "w5", "b5")]
-    _lib.require_cuda_f32("sdf_value_grad", pos, latent, emb, demb, *weights)
-    _lib.require_shape("sdf_value_grad pos", pos, (P, 3))
-    _lib.require_shape("sdf_value_grad latent", latent, (P, packed["L"]))
-    df = torch.empty(P, dtype=torch.float32, device=pos.device)
-    grad = torch.empty(P, 3, dtype=torch.float32, device=pos.device)
-    err = _lib.library().sdf_fused_launch(
-        *[t.data_ptr() for t in (emb, demb, latent, *weights, df, grad)],
-        P, packed["nemb"], packed["L"], kw["in1p"], _ACT_CODES[packed["act"]],
-        packed["w0"], _lib.stream_ptr())
-    _lib.check(err, "sdf_value_grad")
-    _lib.launch_counts["sdf_fused"] += 1
-    return df, grad
+    with _lib.launch("sdf_fused"):
+        P = pos.shape[0]
+        kw = _kernel_weights(packed)
+        emb, demb = embed_with_tangents(packed["embed_fn"], pos)
+        emb, demb = emb.contiguous(), demb.contiguous()
+        weights = [kw[k] for k in ("W1", "b1", "W2", "b2", "W3", "b3", "W4", "b4", "w5", "b5")]
+        _lib.require_cuda_f32("sdf_value_grad", pos, latent, emb, demb, *weights)
+        _lib.require_shape("sdf_value_grad pos", pos, (P, 3))
+        _lib.require_shape("sdf_value_grad latent", latent, (P, packed["L"]))
+        df = torch.empty(P, dtype=torch.float32, device=pos.device)
+        grad = torch.empty(P, 3, dtype=torch.float32, device=pos.device)
+        err = _lib.library().sdf_fused_launch(
+            *[t.data_ptr() for t in (emb, demb, latent, *weights, df, grad)],
+            P, packed["nemb"], packed["L"], kw["in1p"], _ACT_CODES[packed["act"]],
+            packed["w0"], _lib.stream_ptr())
+        _lib.check(err, "sdf_value_grad")
+        return df, grad
 
 
 def sdf_fused_geometry() -> dict:
@@ -350,23 +350,23 @@ def _bf16_weights(packed) -> dict:
 
 
 def _sdf_value_grad_x3_cuda(packed, pos, latent):
-    P = pos.shape[0]
-    kw = _x3_weights(packed)
-    emb, demb = embed_with_tangents(packed["embed_fn"], pos)
-    emb, demb = emb.contiguous(), demb.contiguous()
-    weights = [kw[k] for k in ("W", "bias", "w5", "b5")]
-    _lib.require_cuda_f32("sdf_value_grad", pos, latent, emb, demb, *weights)
-    _lib.require_shape("sdf_value_grad pos", pos, (P, 3))
-    _lib.require_shape("sdf_value_grad latent", latent, (P, packed["L"]))
-    df = torch.empty(P, dtype=torch.float32, device=pos.device)
-    grad = torch.empty(P, 3, dtype=torch.float32, device=pos.device)
-    err = _lib.library().sdf_fused_x3_launch(
-        *[t.data_ptr() for t in (emb, demb, latent, *weights, df, grad)],
-        P, packed["nemb"], packed["L"], kw["nxe"], kw["nxl"], _ACT_CODES[packed["act"]],
-        packed["w0"], _lib.stream_ptr())
-    _lib.check(err, "sdf_value_grad (f32x3)")
-    _lib.launch_counts["sdf_fused_x3"] += 1
-    return df, grad
+    with _lib.launch("sdf_fused_x3"):
+        P = pos.shape[0]
+        kw = _x3_weights(packed)
+        emb, demb = embed_with_tangents(packed["embed_fn"], pos)
+        emb, demb = emb.contiguous(), demb.contiguous()
+        weights = [kw[k] for k in ("W", "bias", "w5", "b5")]
+        _lib.require_cuda_f32("sdf_value_grad", pos, latent, emb, demb, *weights)
+        _lib.require_shape("sdf_value_grad pos", pos, (P, 3))
+        _lib.require_shape("sdf_value_grad latent", latent, (P, packed["L"]))
+        df = torch.empty(P, dtype=torch.float32, device=pos.device)
+        grad = torch.empty(P, 3, dtype=torch.float32, device=pos.device)
+        err = _lib.library().sdf_fused_x3_launch(
+            *[t.data_ptr() for t in (emb, demb, latent, *weights, df, grad)],
+            P, packed["nemb"], packed["L"], kw["nxe"], kw["nxl"], _ACT_CODES[packed["act"]],
+            packed["w0"], _lib.stream_ptr())
+        _lib.check(err, "sdf_value_grad (f32x3)")
+        return df, grad
 
 
 def sdf_fused_x3_geometry() -> dict:
@@ -376,30 +376,31 @@ def sdf_fused_x3_geometry() -> dict:
 
 
 def _sdf_value_grad_bf16_cuda(packed, pos, latent, mode):
-    P = pos.shape[0]
-    mixed = mode == "mixed"
-    kw = _bf16_weights(packed)
-    emb, demb = embed_with_tangents(packed["embed_fn"], pos)
-    emb, demb = emb.contiguous(), demb.contiguous()
-    Wb, Wf = kw["Wb"], kw["Wf"] if mixed else None
-    f32 = [kw[k] for k in ("bias", "w5", "w5r", "b5")] + ([Wf] if mixed else [])
-    _lib.require_cuda_f32(f"sdf_value_grad ({mode})", pos, latent, emb, demb, *f32)
-    if Wb.device != pos.device or Wb.dtype != torch.bfloat16 or not Wb.is_contiguous():
-        raise ValueError(f"sdf_value_grad ({mode}): the bf16 weights are not a contiguous "
-                         f"bfloat16 tensor on {pos.device}")
-    _lib.require_shape("sdf_value_grad pos", pos, (P, 3))
-    _lib.require_shape("sdf_value_grad latent", latent, (P, packed["L"]))
-    df = torch.empty(P, dtype=torch.float32, device=pos.device)
-    grad = torch.empty(P, 3, dtype=torch.float32, device=pos.device)
-    err = _lib.library().sdf_fused_bf16_launch(
-        emb.data_ptr(), demb.data_ptr(), latent.data_ptr(), Wb.data_ptr(),
-        Wf.data_ptr() if mixed else None,
-        *[kw[k].data_ptr() for k in ("bias", "w5", "w5r", "b5")], df.data_ptr(), grad.data_ptr(),
-        P, packed["nemb"], packed["L"], kw["nxe"], kw["nxl"], int(mixed),
-        _ACT_CODES[packed["act"]], packed["w0"], _lib.stream_ptr())
-    _lib.check(err, f"sdf_value_grad ({mode})")
-    _lib.launch_counts[f"sdf_fused_{mode}"] += 1
-    return df, grad
+    with _lib.launch(f"sdf_fused_{mode}"):
+        P = pos.shape[0]
+        mixed = mode == "mixed"
+        kw = _bf16_weights(packed)
+        emb, demb = embed_with_tangents(packed["embed_fn"], pos)
+        emb, demb = emb.contiguous(), demb.contiguous()
+        Wb, Wf = kw["Wb"], kw["Wf"] if mixed else None
+        f32 = [kw[k] for k in ("bias", "w5", "w5r", "b5")] + ([Wf] if mixed else [])
+        _lib.require_cuda_f32(f"sdf_value_grad ({mode})", pos, latent, emb, demb, *f32)
+        if Wb.device != pos.device or Wb.dtype != torch.bfloat16 or not Wb.is_contiguous():
+            raise ValueError(f"sdf_value_grad ({mode}): the bf16 weights are not a contiguous "
+                             f"bfloat16 tensor on {pos.device}")
+        _lib.require_shape("sdf_value_grad pos", pos, (P, 3))
+        _lib.require_shape("sdf_value_grad latent", latent, (P, packed["L"]))
+        df = torch.empty(P, dtype=torch.float32, device=pos.device)
+        grad = torch.empty(P, 3, dtype=torch.float32, device=pos.device)
+        err = _lib.library().sdf_fused_bf16_launch(
+            emb.data_ptr(), demb.data_ptr(), latent.data_ptr(), Wb.data_ptr(),
+            Wf.data_ptr() if mixed else None,
+            *[kw[k].data_ptr() for k in ("bias", "w5", "w5r", "b5")], df.data_ptr(),
+            grad.data_ptr(),
+            P, packed["nemb"], packed["L"], kw["nxe"], kw["nxl"], int(mixed),
+            _ACT_CODES[packed["act"]], packed["w0"], _lib.stream_ptr())
+        _lib.check(err, f"sdf_value_grad ({mode})")
+        return df, grad
 
 
 def sdf_fused_bf16_geometry(mode, packed) -> dict:

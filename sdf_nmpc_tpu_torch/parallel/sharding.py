@@ -26,6 +26,7 @@ import torch.distributed as dist
 
 from .. import resolve_device
 from ..solver import SolveInputs, SolverState, make_rti_step
+from ..utils.timing import span
 
 SCENARIO_AXIS = "scenario"
 INIT_TIMEOUT_S = 300.0  # how long a rank waits for the others to join
@@ -130,7 +131,8 @@ def make_batched_step(ocp, cfg, mesh: Optional[Mesh] = None, with_evals: bool = 
     ``inputs`` are this rank's shard (``shard_batch``) on ``mesh.device``
     and so are the results; the stats are the global batch's on every rank:
     the counts and the KKT sum (in float64) all-reduced by sum, the largest
-    KKT residual by max, the mean the sum over the global B.  Per-node
+    KKT residual by max, the mean the sum over the global B; the reduction
+    and its all-reduces are the profiler span ``nmpc.scaleout.stats``.  Per-node
     diagnostics default off (they re-run the SDF network).  budget: the QP
     iteration schedule ("cold", "warm" or "steady")."""
     if mesh is not None and not isinstance(mesh, Mesh):
@@ -140,21 +142,24 @@ def make_batched_step(ocp, cfg, mesh: Optional[Mesh] = None, with_evals: bool = 
 
     def batched(states: SolverState, inputs: SolveInputs):
         results = step(states, inputs)
+        with span("nmpc.scaleout.stats"):
+            return results, batch_stats(results)
+
+    def batch_stats(results):
         ok = (results.status == 0).to(torch.int32)
         kkt = results.kkt_residual
         n_ok, n_failed = ok.sum(), (1 - ok).sum()
         if mesh is None:
-            return results, BatchStats(n_ok=n_ok, n_failed=n_failed, max_kkt=kkt.amax(),
-                                       mean_kkt=kkt.mean())
+            return BatchStats(n_ok=n_ok, n_failed=n_failed, max_kkt=kkt.amax(),
+                              mean_kkt=kkt.mean())
         sums = torch.stack([n_ok.double(), n_failed.double(), kkt.double().sum()])
         top = kkt.amax()
         if mesh.group is not None:
             dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=mesh.group)
             dist.all_reduce(top, op=dist.ReduceOp.MAX, group=mesh.group)
         mean = (sums[2] / (kkt.shape[0] * mesh.size)).to(kkt.dtype)
-        stats = BatchStats(n_ok=sums[0].to(n_ok.dtype), n_failed=sums[1].to(n_failed.dtype),
-                           max_kkt=top, mean_kkt=mean)
-        return results, stats
+        return BatchStats(n_ok=sums[0].to(n_ok.dtype), n_failed=sums[1].to(n_failed.dtype),
+                          max_kkt=top, mean_kkt=mean)
 
     return batched
 

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.timing import span
+
 # ---------------------------------------------------------------------------
 # projection maps
 # ---------------------------------------------------------------------------
@@ -39,8 +41,10 @@ def _map_like(img, hfov, vfov):
 
 
 def depth2range(depth_img, hfov: float, vfov: float):
-    """Depth -> range, clipped to [0, 1]."""
-    return torch.clamp(depth_img * _map_like(depth_img, hfov, vfov), 0.0, 1.0)
+    """Depth -> range, clipped to [0, 1] (the profiler span
+    ``nmpc.perception.range``)."""
+    with span("nmpc.perception.range"):
+        return torch.clamp(depth_img * _map_like(depth_img, hfov, vfov), 0.0, 1.0)
 
 
 def range2depth(range_img, hfov: float, vfov: float):
@@ -49,9 +53,11 @@ def range2depth(range_img, hfov: float, vfov: float):
 
 
 def clip_distance(img, dmax: float, mm_resolution: float = 1000):
-    """Raw sensor units -> dmax-normalized [0, 1]."""
-    d = dmax / mm_resolution * 1000
-    return torch.clamp(img / d, 0.0, 1.0)
+    """Raw sensor units -> dmax-normalized [0, 1] (the profiler span
+    ``nmpc.perception.clip``)."""
+    with span("nmpc.perception.clip"):
+        d = dmax / mm_resolution * 1000
+        return torch.clamp(img / d, 0.0, 1.0)
 
 
 def reshape_resize(img, shape_img=None):

@@ -41,6 +41,12 @@ Pallas kernel there), after kernels 1 or 9 and 2.  ``lin_impl`` 'xla'
 linearizes by torch.func and condenses by the plain recursion (no kernel
 1, 9 or 3); ``qp_data_bf16`` rounds H and C to bf16 before the QP.
 
+Each call of the step is the profiler span ``nmpc.step`` (``utils.timing.span``),
+its stages the child spans ``nmpc.step.lin``, ``.rows``, ``.terminal``,
+``.condense``, ``.gram``, ``.qp`` and ``.update``, in that order, on both QP
+backends (the Riccati backend condenses nothing: its ``condense`` span holds
+the initial-state defect alone).
+
 The FoV-row, extension-row, ``yN`` and terminal ``hN`` Jacobians use
 ``torch.func``; the Gram H/g assembly (``gram``) accumulates in f64, where
 the JAX step forms it in f32.  A non-finite update leaves the scenario's
@@ -58,6 +64,7 @@ from torch.func import jacfwd, jacrev, vmap
 
 from ..ocp import OcpSpec, autodiff_value_grad
 from ..ops import condense_kernel, lin_kernels, sdf_fused
+from ..utils.timing import span
 from .qp import CHOL_IMPLS, QpData, QpDuals, solve_qp
 from .qp_riccati import StageQpData, solve_qp_riccati
 
@@ -349,133 +356,153 @@ def make_rti_step(ocp: OcpSpec, cfg, budget: str = "cold", with_evals: bool = Tr
         hN_jac = vmap(jacN(lambda x, p: ocp.h_term(x, p, net), argnums=0))
 
     def step(state: SolverState, inp: SolveInputs) -> SolveResult:
-        X = state.X.to(dtype)
-        U = state.U.to(dtype)
-        x0 = inp.x0.to(dtype)
-        p = inp.p.to(dtype)
-        W, WN = inp.W.to(dtype), inp.WN.to(dtype)
-        B = X.shape[0]
-        M = B * N
-        XN_, PN_ = X[:, :N].reshape(M, nx), p[:, :N].reshape(M, -1)
+        with span("nmpc.step"):
+            return _step(state, inp)
 
+    def _step(state: SolverState, inp: SolveInputs) -> SolveResult:
         # ---- 1. per-node linearization: kernel 1, or kernel 9 + torch.func ----
-        UN_, dtN_ = U.reshape(M, nu).contiguous(), dt.repeat(B).contiguous()
-        yref = inp.yref.to(dtype).reshape(M, -1).contiguous()
-        if use_lin_y:
-            x_next, A, Bm, res, Jyx, Jyu = lin_kernels.lin_y_sens(
-                ocp.model, layout, XN_.contiguous(), UN_, dtN_, PN_, yref)
-        else:
-            erk4_sens = lin_kernels.erk4_sens_plain if lin_xla else lin_kernels.erk4_sens
-            x_next, A, Bm = erk4_sens(ocp.model, XN_.contiguous(), UN_, dtN_)
-            y_val, Jyx, Jyu = y_lin(XN_, UN_, PN_)
-            res = y_val - yref
-        ny = res.shape[-1]
-        x_next = x_next.reshape(B, N, nx)
-        A, Bm = A.reshape(B, N, nx, nx), Bm.reshape(B, N, nx, nu)
-        res, Jyx, Jyu = res.reshape(B, N, ny), Jyx.reshape(B, N, ny, nx), Jyu.reshape(B, N, ny, nu)
+        with span("nmpc.step.lin"):
+            X = state.X.to(dtype)
+            U = state.U.to(dtype)
+            x0 = inp.x0.to(dtype)
+            p = inp.p.to(dtype)
+            W, WN = inp.W.to(dtype), inp.WN.to(dtype)
+            B = X.shape[0]
+            M = B * N
+            XN_, PN_ = X[:, :N].reshape(M, nx), p[:, :N].reshape(M, -1)
+            UN_, dtN_ = U.reshape(M, nu).contiguous(), dt.repeat(B).contiguous()
+            yref = inp.yref.to(dtype).reshape(M, -1).contiguous()
+            if use_lin_y:
+                x_next, A, Bm, res, Jyx, Jyu = lin_kernels.lin_y_sens(
+                    ocp.model, layout, XN_.contiguous(), UN_, dtN_, PN_, yref)
+            else:
+                erk4_sens = lin_kernels.erk4_sens_plain if lin_xla else lin_kernels.erk4_sens
+                x_next, A, Bm = erk4_sens(ocp.model, XN_.contiguous(), UN_, dtN_)
+                y_val, Jyx, Jyu = y_lin(XN_, UN_, PN_)
+                res = y_val - yref
+            ny = res.shape[-1]
+            x_next = x_next.reshape(B, N, nx)
+            A, Bm = A.reshape(B, N, nx, nx), Bm.reshape(B, N, nx, nu)
+            res, Jyx = res.reshape(B, N, ny), Jyx.reshape(B, N, ny, nx)
+            Jyu = Jyu.reshape(B, N, ny, nu)
 
         # ---- constraint rows: the FoV rows by jacfwd over x[:3] and the sdf
         # row by kernel 2 on its fast path, else by torch.func ----
-        h_val = torch.zeros(M, nh, dtype=dtype, device=dev)
-        Jhx = torch.zeros(M, nh, nx, dtype=dtype, device=dev)
-        Jhu = torch.zeros(M, nh, nu, dtype=dtype, device=dev)
-        if n_cheap:
-            h_val[:, cheap_idx] = cheap(XN_, UN_, PN_)
-            if ocp.cheap_rows_pos_only:  # (M, n_cheap, 3)
-                Jhx[:, cheap_idx, :3] = cheap_jac(XN_[:, :3], XN_[:, 3:], UN_, PN_)
-            else:
-                Jhx[:, cheap_idx], Jhu[:, cheap_idx] = cheap_jac(XN_, UN_, PN_)
-        if sdf_fast:
-            h_sdf, dhdx3 = ocp.sdf_row_batch(XN_, PN_, value_grad)
-            h_val[:, ocp.sdf_stage_idx] = h_sdf.to(dtype)
-            Jhx[:, ocp.sdf_stage_idx, :3] = dhdx3.to(dtype)
-        h_val, Jhx = h_val.reshape(B, N, nh), Jhx.reshape(B, N, nh, nx)
-        Jhu = Jhu.reshape(B, N, nh, nu)
-        defect = x_next - X[:, 1:]
+        with span("nmpc.step.rows"):
+            h_val = torch.zeros(M, nh, dtype=dtype, device=dev)
+            Jhx = torch.zeros(M, nh, nx, dtype=dtype, device=dev)
+            Jhu = torch.zeros(M, nh, nu, dtype=dtype, device=dev)
+            if n_cheap:
+                h_val[:, cheap_idx] = cheap(XN_, UN_, PN_)
+                if ocp.cheap_rows_pos_only:  # (M, n_cheap, 3)
+                    Jhx[:, cheap_idx, :3] = cheap_jac(XN_[:, :3], XN_[:, 3:], UN_, PN_)
+                else:
+                    Jhx[:, cheap_idx], Jhu[:, cheap_idx] = cheap_jac(XN_, UN_, PN_)
+            if sdf_fast:
+                h_sdf, dhdx3 = ocp.sdf_row_batch(XN_, PN_, value_grad)
+                h_val[:, ocp.sdf_stage_idx] = h_sdf.to(dtype)
+                Jhx[:, ocp.sdf_stage_idx, :3] = dhdx3.to(dtype)
+            h_val, Jhx = h_val.reshape(B, N, nh), Jhx.reshape(B, N, nh, nx)
+            Jhu = Jhu.reshape(B, N, nh, nu)
+            defect = x_next - X[:, 1:]
 
         # ---- terminal rows ----
-        xN, pN = X[:, N], p[:, N]
-        resN = ocp.yN(xN, pN) - inp.yrefN.to(dtype)
-        JxN = yN_jac(xN, pN)
-        if nhN:
-            hN_val, JhxN = ocp.h_term(xN, pN, net), hN_jac(xN, pN)
-        else:
-            hN_val, JhxN = X.new_zeros(B, 0), X.new_zeros(B, 0, nx)
+        with span("nmpc.step.terminal"):
+            xN, pN = X[:, N], p[:, N]
+            resN = ocp.yN(xN, pN) - inp.yrefN.to(dtype)
+            JxN = yN_jac(xN, pN)
+            if nhN:
+                hN_val, JhxN = ocp.h_term(xN, pN, net), hN_jac(xN, pN)
+            else:
+                hN_val, JhxN = X.new_zeros(B, 0), X.new_zeros(B, 0, nx)
 
-        e0 = x0 - X[:, 0]
-        Ws = W * scale[:N, None]
         if use_riccati:
-            # ---- stage-structured (Riccati) backend: no condensing; LM as
-            # lm I on the stage Hessians and no linear term (JAX :450-494) ----
-            JyxW = Jyx.transpose(-1, -2) * Ws[:, :, None, :]  # (B, N, nx, ny)
-            JyuW = Jyu.transpose(-1, -2) * Ws[:, :, None, :]
-            JxNW = JxN.transpose(-1, -2) * WN[:, None, :]
-            eye_x = torch.eye(nx, dtype=dtype, device=dev)
-            sqd = StageQpData(
-                Q=torch.cat([JyxW @ Jyx, (JxNW @ JxN)[:, None]], 1) + lm * eye_x,
-                q=torch.cat([(JyxW @ res[..., None])[..., 0], (JxNW @ resN[..., None])[:, None, :, 0]],
-                            1),
-                R=JyuW @ Jyu + lm * torch.eye(nu, dtype=dtype, device=dev),
-                r=(JyuW @ res[..., None])[..., 0], Ssu=JyuW @ Jyx,
-                A=A, B=Bm, b=defect, e0=e0, Cx=Jhx, Cu=Jhu, c=h_val,
-                lh=lh.expand(B, -1), uh=uh.expand(B, -1),
-                z1=z1_stage.reshape(N, nh).expand(B, -1, -1),
-                z2=z2_stage.reshape(N, nh).expand(B, -1, -1),
-                CxN=JhxN, cN=hN_val, lhN=lhN.expand(B, -1), uhN=uhN.expand(B, -1),
-                z1N=zlN.expand(B, -1), z2N=ZlN.expand(B, -1), lb=lbu - U, ub=ubu - U)
-            rres = solve_qp_riccati(sqd, iters=qp_iters, mu0=mu0, box_margin=box_margin,
-                                    k_stiff=k_stiff, stiff_iters=stiff_iters,
-                                    ratio_cap_override=ratio_cap)
-            return finish(X, U, rres.ddx, rres.ddu, rres.kkt_residual, rres.complementarity,
-                          state.qp_duals, p)
+            # ---- stage-structured (Riccati) backend: no condensing (its span
+            # holds the initial-state defect alone, so that both backends show
+            # the same stages); LM as lm I on the stage Hessians and no linear
+            # term (JAX :450-494) ----
+            with span("nmpc.step.condense"):
+                e0 = x0 - X[:, 0]
+            with span("nmpc.step.gram"):
+                Ws = W * scale[:N, None]
+                JyxW = Jyx.transpose(-1, -2) * Ws[:, :, None, :]  # (B, N, nx, ny)
+                JyuW = Jyu.transpose(-1, -2) * Ws[:, :, None, :]
+                JxNW = JxN.transpose(-1, -2) * WN[:, None, :]
+                eye_x = torch.eye(nx, dtype=dtype, device=dev)
+                sqd = StageQpData(
+                    Q=torch.cat([JyxW @ Jyx, (JxNW @ JxN)[:, None]], 1) + lm * eye_x,
+                    q=torch.cat([(JyxW @ res[..., None])[..., 0],
+                                 (JxNW @ resN[..., None])[:, None, :, 0]], 1),
+                    R=JyuW @ Jyu + lm * torch.eye(nu, dtype=dtype, device=dev),
+                    r=(JyuW @ res[..., None])[..., 0], Ssu=JyuW @ Jyx,
+                    A=A, B=Bm, b=defect, e0=e0, Cx=Jhx, Cu=Jhu, c=h_val,
+                    lh=lh.expand(B, -1), uh=uh.expand(B, -1),
+                    z1=z1_stage.reshape(N, nh).expand(B, -1, -1),
+                    z2=z2_stage.reshape(N, nh).expand(B, -1, -1),
+                    CxN=JhxN, cN=hN_val, lhN=lhN.expand(B, -1), uhN=uhN.expand(B, -1),
+                    z1N=zlN.expand(B, -1), z2N=ZlN.expand(B, -1), lb=lbu - U, ub=ubu - U)
+            with span("nmpc.step.qp"):
+                rres = solve_qp_riccati(sqd, iters=qp_iters, mu0=mu0, box_margin=box_margin,
+                                        k_stiff=k_stiff, stiff_iters=stiff_iters,
+                                        ratio_cap_override=ratio_cap)
+            with span("nmpc.step.update"):
+                return finish(X, U, rres.ddx, rres.ddu, rres.kkt_residual, rres.complementarity,
+                              state.qp_duals, p)
 
         # ---- 2. condensing: kernel 3; without constraint rows (enable_sdf
         # off) or under lin_impl 'xla' the plain recursion, as JAX takes its
         # non-kernel condensing at nh = 0 (sqp.py:501): kernel 3 needs nh >= 1 ----
-        condense = (condense_kernel.condense if nh and not lin_xla
-                    else condense_kernel.condense_plain)
-        e_st, E_st, eN, EN, G, res_c, C_st, c_st = condense(
-            *[v.contiguous() for v in (A, Bm, defect, e0, Jyx, Jyu, res, Jhx, Jhu, h_val)])
+        with span("nmpc.step.condense"):
+            e0 = x0 - X[:, 0]
+            condense = (condense_kernel.condense if nh and not lin_xla
+                        else condense_kernel.condense_plain)
+            e_st, E_st, eN, EN, G, res_c, C_st, c_st = condense(
+                *[v.contiguous() for v in (A, Bm, defect, e0, Jyx, Jyu, res, Jhx, Jhu, h_val)])
 
         # ---- 3. condensed Hessian / gradient: one Gram product ----
-        GN = JxN @ EN  # (B, nyN, nz)
-        resN_c = resN + (JxN @ eN[..., None])[..., 0]
-        # Levenberg-Marquardt rows (acados convention): 0.5 lm ||e_k + E_k dz||^2
-        E_all = torch.cat([E_st, EN[:, None]], 1)  # (B, N+1, nx, nz)
-        e_all = torch.cat([e_st, eN[:, None]], 1)  # (B, N+1, nx)
-        M_rows = torch.cat([G.reshape(B, N * ny, nz), GN, E_all.reshape(B, (N + 1) * nx, nz)], 1)
-        w_rows = torch.cat([Ws.reshape(B, N * ny), WN,
-                            torch.full((B, (N + 1) * nx), lm, dtype=dtype, device=dev)], 1)
-        r_rows = torch.cat([(Ws * res_c).reshape(B, N * ny), WN * resN_c,
-                            lm * e_all.reshape(B, (N + 1) * nx)], 1)
-        H, g = gram(M_rows, w_rows, r_rows, lm, dtype)
+        with span("nmpc.step.gram"):
+            Ws = W * scale[:N, None]
+            GN = JxN @ EN  # (B, nyN, nz)
+            resN_c = resN + (JxN @ eN[..., None])[..., 0]
+            # Levenberg-Marquardt rows (acados convention): 0.5 lm ||e_k + E_k dz||^2
+            E_all = torch.cat([E_st, EN[:, None]], 1)  # (B, N+1, nx, nz)
+            e_all = torch.cat([e_st, eN[:, None]], 1)  # (B, N+1, nx)
+            M_rows = torch.cat([G.reshape(B, N * ny, nz), GN,
+                                E_all.reshape(B, (N + 1) * nx, nz)], 1)
+            w_rows = torch.cat([Ws.reshape(B, N * ny), WN,
+                                torch.full((B, (N + 1) * nx), lm, dtype=dtype, device=dev)], 1)
+            r_rows = torch.cat([(Ws * res_c).reshape(B, N * ny), WN * resN_c,
+                                lm * e_all.reshape(B, (N + 1) * nx)], 1)
+            H, g = gram(M_rows, w_rows, r_rows, lm, dtype)
 
-        C = torch.cat([C_st.reshape(B, N * nh, nz), JhxN @ EN], 1)
-        c0 = torch.cat([c_st.reshape(B, N * nh), hN_val + (JhxN @ eN[..., None])[..., 0]], 1)
-        if qp_bf16:  # H and C stored in bf16, every computation in the solver dtype
-            H, C = bf16_round(H), bf16_round(C)
-        qp = QpData(
-            H=H, g=g, C=C, c0=c0,
-            lh=lh_all.expand(B, -1), uh=uh_all.expand(B, -1),
-            z1=z1_all.expand(B, -1), z2=z2_all.expand(B, -1),
-            lb=(lbu - U).reshape(B, nz), ub=(ubu - U).reshape(B, nz),
-        )
+            C = torch.cat([C_st.reshape(B, N * nh, nz), JhxN @ EN], 1)
+            c0 = torch.cat([c_st.reshape(B, N * nh), hN_val + (JhxN @ eN[..., None])[..., 0]], 1)
+            if qp_bf16:  # H and C stored in bf16, every computation in the solver dtype
+                H, C = bf16_round(H), bf16_round(C)
+            qp = QpData(
+                H=H, g=g, C=C, c0=c0,
+                lh=lh_all.expand(B, -1), uh=uh_all.expand(B, -1),
+                z1=z1_all.expand(B, -1), z2=z2_all.expand(B, -1),
+                lb=(lbu - U).reshape(B, nz), ub=(ubu - U).reshape(B, nz),
+            )
 
         # ---- 4. QP: kernel 4 (two phases) or kernels 5-8 (composed) ----
-        qp_res = solve_qp(qp, iters=qp_iters, mu0=mu0, box_margin=box_margin,
-                          k_stiff=k_stiff, stiff_iters=stiff_iters,
-                          ratio_cap_override=ratio_cap,
-                          warm_duals=state.qp_duals if dual_ws else None,
-                          ir_steps=ir_steps, chol_impl=chol_impl, compute_dtype=compute_dtype)
-        dz = qp_res.dz
+        with span("nmpc.step.qp"):
+            qp_res = solve_qp(qp, iters=qp_iters, mu0=mu0, box_margin=box_margin,
+                              k_stiff=k_stiff, stiff_iters=stiff_iters,
+                              ratio_cap_override=ratio_cap,
+                              warm_duals=state.qp_duals if dual_ws else None,
+                              ir_steps=ir_steps, chol_impl=chol_impl, compute_dtype=compute_dtype)
+            dz = qp_res.dz
 
         # ---- 5. linear trajectory update + NaN guard ----
-        # under a qp_compute_dtype dz comes in it, and the update promotes (JAX's einsum)
-        E_all = E_all.to(torch.promote_types(E_all.dtype, dz.dtype))
-        dX = e_all + (E_all @ dz[:, None, :, None])[..., 0]
-        return finish(X, U, dX, dz.reshape(B, N, nu), qp_res.kkt_residual,
-                      qp_res.complementarity,
-                      qp_res.duals if state.qp_duals is not None else None, p)
+        with span("nmpc.step.update"):
+            # under a qp_compute_dtype dz comes in it, and the update promotes (JAX's einsum)
+            E_all = E_all.to(torch.promote_types(E_all.dtype, dz.dtype))
+            dX = e_all + (E_all @ dz[:, None, :, None])[..., 0]
+            return finish(X, U, dX, dz.reshape(B, N, nu), qp_res.kkt_residual,
+                          qp_res.complementarity,
+                          qp_res.duals if state.qp_duals is not None else None, p)
 
     def finish(X, U, dX, dU, kkt_residual, complementarity, duals, p):
         """The trajectory update, the NaN guard and the status (both QP
