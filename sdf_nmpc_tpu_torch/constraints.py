@@ -12,8 +12,9 @@ import numpy as np
 import torch
 
 from . import math as m
-from .ocp import _const, _slack_or_hard, camera_frame_position
+from .ocp import _slack_or_hard, camera_frame_position
 from .params import ParamLayout
+from .utils.device_consts import kept
 
 
 def fov_const_normals(cfg, h_const=True, v_const=True, slack=None):
@@ -29,7 +30,7 @@ def fov_const_normals(cfg, h_const=True, v_const=True, slack=None):
         n = np.asarray(normal / np.linalg.norm(normal), np.float32).astype(np.float64)
 
         def fn(x, u, p):
-            return layout.get_flag(p) * (_const(n, x) * co_p_c(x, p)).sum(-1)
+            return layout.get_flag(p) * (kept(n, x) * co_p_c(x, p)).sum(-1)
 
         return (fn, 0.0, dmax, z1, z2)
 

@@ -48,9 +48,10 @@ def yaw2quat(yaw):
 
 
 def quat_invert(q):
-    """Inverse (normalized conjugate) quaternion."""
-    sign = torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
-    return q * sign / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    """Inverse (normalized conjugate) quaternion.  The vector part is
+    negated, which equals a product by (1, -1, -1, -1) bit for bit."""
+    conj = torch.cat([q[..., :1], -q[..., 1:]], -1)
+    return conj / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
 
 
 def hamilton_prod(q1, q2):

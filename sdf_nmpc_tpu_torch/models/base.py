@@ -22,6 +22,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..utils.device_consts import kept
+
 GRAVITY = 9.81
 # floats in the kernels' ModelConsts block (csrc/dual.cuh)
 N_KERNEL_CONSTS = 35
@@ -76,7 +78,7 @@ def scale_inputs(u, scale):
     differentiated model functions never scale a component alone: a Python
     float times a 0-dim tensor gets a float64 tangent under torch.func's
     forward mode."""
-    return u * torch.as_tensor(scale, dtype=u.dtype, device=u.device)
+    return u * kept(scale, u)
 
 
 def terminal_gate_enabled(cfg) -> bool:

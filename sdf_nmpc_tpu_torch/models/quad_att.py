@@ -14,6 +14,7 @@ import torch
 
 from .. import math as m
 from ..params import ParamLayout
+from ..utils.device_consts import kept
 from .base import GRAVITY, ModelSpec, kernel_consts, scale_inputs, terminal_gate_enabled
 
 
@@ -43,7 +44,7 @@ def make_model(cfg) -> ModelSpec:
         W_R_B = m.quat2rot(qyaw) @ V_R_B
         zg = torch.zeros_like(gamma)
         thrust = torch.stack([zg, zg, gamma], -1)
-        g = torch.tensor([0.0, 0.0, -GRAVITY], dtype=q.dtype, device=q.device)
+        g = kept([0.0, 0.0, -GRAVITY], q)
         W_a = (W_R_B @ thrust[..., None])[..., 0] + g
         return W_R_B, W_a
 

@@ -24,6 +24,7 @@ import torch
 
 from .. import math as m
 from ..params import ParamLayout
+from ..utils.device_consts import kept
 from .base import GRAVITY, ModelSpec, kernel_consts, scale_inputs, terminal_gate_enabled
 
 TAU_ROLL = 0.12
@@ -46,7 +47,7 @@ def make_model(cfg) -> ModelSpec:
         """(W_R_B, R (0, 0, gamma) - g e3)."""
         zero = torch.zeros_like(gamma)
         W_R_B = m.quat2rot(q)
-        g = torch.tensor([0.0, 0.0, -GRAVITY], dtype=q.dtype, device=q.device)
+        g = kept([0.0, 0.0, -GRAVITY], q)
         thrust = torch.stack([zero, zero, gamma], -1)
         return W_R_B, (W_R_B @ thrust[..., None])[..., 0] + g
 
@@ -55,7 +56,7 @@ def make_model(cfg) -> ModelSpec:
         eta = m.quat2euler(q)
         us = scale_inputs(u, scale)
         _, W_a = _world_acc(q, us[..., 0])
-        tau = torch.as_tensor([TAU_ROLL, TAU_PITCH], dtype=x.dtype, device=x.device)
+        tau = kept([TAU_ROLL, TAU_PITCH], x)
         dot = (us[..., 1:3] - eta[..., :2]) / tau
         rates = torch.cat([dot, torch.zeros_like(dot[..., :1])], -1)
         w = (m.deuler_avel_map(eta) @ rates[..., None])[..., 0]

@@ -17,6 +17,7 @@ import torch
 
 from .. import math as m
 from ..params import ParamLayout
+from ..utils.device_consts import kept
 from .base import GRAVITY, ModelSpec, kernel_consts, lanes_mv3, lanes_quat, lanes_quat_deriv
 
 
@@ -42,9 +43,6 @@ def make_model(cfg) -> ModelSpec:
     Gf, Gt = _allocation_from_cfg(cfg)
     wh = float(np.sqrt(mass * GRAVITY / 4 / cfg.robot.alloc.cf))
 
-    def const(a, like):
-        return torch.as_tensor(a, dtype=like.dtype, device=like.device)
-
     def _split(x):
         q = x[..., 3:7]
         q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
@@ -54,8 +52,8 @@ def make_model(cfg) -> ModelSpec:
         """(W_R_B, W_a)."""
         wp2 = (u * lim.wp) ** 2
         W_R_B = m.quat2rot(q)
-        f_body = (const(Gf, u) @ wp2[..., None])[..., 0]
-        g = const([0.0, 0.0, -GRAVITY], u)
+        f_body = (kept(Gf, u) @ wp2[..., None])[..., 0]
+        g = kept([0.0, 0.0, -GRAVITY], u)
         return W_R_B, (W_R_B @ f_body[..., None])[..., 0] / mass + g
 
     def f(x, u):
@@ -63,9 +61,9 @@ def make_model(cfg) -> ModelSpec:
         _, W_a = _world_acc(q, u)
         zero = torch.zeros_like(w[..., :1])
         dq = m.hamilton_prod(q, torch.cat([zero, w], -1)) / 2
-        Jw = (const(J, x) @ w[..., None])[..., 0]
-        torque = (const(Gt, u) @ ((u * lim.wp) ** 2)[..., None])[..., 0]
-        dw = (const(Jinv, x) @ (torque - torch.linalg.cross(w, Jw))[..., None])[..., 0]
+        Jw = (kept(J, x) @ w[..., None])[..., 0]
+        torque = (kept(Gt, u) @ ((u * lim.wp) ** 2)[..., None])[..., 0]
+        dw = (kept(Jinv, x) @ (torque - torch.linalg.cross(w, Jw))[..., None])[..., 0]
         return torch.cat([v, dq, W_a, dw], -1)
 
     def f_lanes(x, u):

@@ -15,6 +15,7 @@ import torch
 
 from .. import math as m
 from ..params import ParamLayout
+from ..utils.device_consts import kept
 from .base import (GRAVITY, ModelSpec, kernel_consts, lanes_mv3, lanes_quat,
                    lanes_quat_deriv, scale_inputs)
 
@@ -39,7 +40,7 @@ def make_model(cfg) -> ModelSpec:
         R = m.quat2rot(q)
         zero = torch.zeros_like(gamma)
         dq = m.hamilton_prod(q, torch.cat([zero[..., None], _w(u)], -1)) / 2
-        g = torch.tensor([0.0, 0.0, -GRAVITY], dtype=x.dtype, device=x.device)
+        g = kept([0.0, 0.0, -GRAVITY], x)
         dv = (R.transpose(-1, -2) @ g[:, None])[..., 0] + torch.stack([zero, zero, gamma], -1)
         return torch.cat([(R @ v[..., None])[..., 0], dq, dv], -1)
 

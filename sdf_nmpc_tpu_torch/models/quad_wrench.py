@@ -16,6 +16,7 @@ import torch
 
 from .. import math as m
 from ..params import ParamLayout
+from ..utils.device_consts import kept
 from .base import (GRAVITY, ModelSpec, kernel_consts, lanes_mv3, lanes_quat,
                    lanes_quat_deriv, scale_inputs)
 
@@ -39,7 +40,7 @@ def make_model(cfg) -> ModelSpec:
         R = m.quat2rot(q)
         zero = torch.zeros_like(gamma)
         dq = m.hamilton_prod(q, torch.cat([zero[..., None], w], -1)) / 2
-        g = torch.tensor([0.0, 0.0, -GRAVITY], dtype=x.dtype, device=x.device)
+        g = kept([0.0, 0.0, -GRAVITY], x)
         dv = (R.transpose(-1, -2) @ g[:, None])[..., 0] + torch.stack([zero, zero, gamma], -1)
         return torch.cat([(R @ v[..., None])[..., 0], dq, dv, torques], -1)
 
@@ -64,7 +65,7 @@ def make_model(cfg) -> ModelSpec:
 
     def u_to_cmd(x, u, p):
         torques = scale_inputs(u, scale)[..., 1:]
-        J = torch.as_tensor(inertia, dtype=u.dtype, device=u.device)
+        J = kept(inertia, u)
         return torch.cat([(mass * u[..., 0] * lim.gamma)[..., None],
                           (J @ torques[..., None])[..., 0]], -1)
 

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device_consts import kept
+
 _PHI = (1 + np.sqrt(5.0)) / 2
 
 
@@ -68,8 +70,7 @@ class PositionEmbedding:
         self.nb_embeddings = nb_freqs * self.dirs.shape[-1] * 2 + 3
 
     def __call__(self, x):
-        dirs = torch.as_tensor(self.dirs, dtype=x.dtype, device=x.device)
-        freqs = torch.as_tensor(self.freq_bands, dtype=x.dtype, device=x.device)
+        dirs, freqs = kept(self.dirs, x), kept(self.freq_bands, x)
         proj = x @ dirs  # (..., n_dirs)
         xb = (proj[..., None] * freqs).reshape(*proj.shape[:-1], -1)
         emb = torch.sin(torch.cat([xb, xb + 0.5 * np.pi], dim=-1))

@@ -46,6 +46,7 @@ from .config import sensor_extrinsics
 from .models import make_model
 from .models.base import GRAVITY, ModelSpec
 from .params import ParamLayout
+from .utils.device_consts import kept
 
 
 def shooting_nodes(cfg) -> np.ndarray:
@@ -178,10 +179,6 @@ def _slack_or_hard(cfg, slack) -> tuple[float, float]:
     return float(slack[0]), float(slack[1])
 
 
-def _const(a, like):
-    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
-
-
 def camera_frame_position(cfg, layout: ParamLayout):
     """(co_p_b, co_p_c): fn(x, p) -> the body's (camera's) position in the
     observation camera frame Co, W_R_Co^T (x[:3] - W_p_Co) (+ the sensor
@@ -195,7 +192,7 @@ def camera_frame_position(cfg, layout: ParamLayout):
         return ((x[..., None, :3] - layout.get_W_p_Co(p)[..., None, :]) @ R)[..., 0, :]
 
     def co_p_c(x, p):
-        return co_p_b(x, p) + _const(b_off, x)
+        return co_p_b(x, p) + kept(b_off, x)
 
     return co_p_b, co_p_c
 
@@ -273,7 +270,7 @@ def build_ocp(cfg, sdf: torch.nn.Module = None, sdf_max_df: float = 1.0,
         return torch.stack(rows, -1)
 
     def cam(x, p):
-        return co_p_c(x, p) + _const(fov_offset, x)
+        return co_p_c(x, p) + kept(fov_offset, x)
 
     def sdf_unflagged(x, p, net):
         return net(torch.cat([co_p_b(x, p), layout.get_latent(p)], -1))[..., 0]
@@ -343,7 +340,7 @@ def build_ocp(cfg, sdf: torch.nn.Module = None, sdf_max_df: float = 1.0,
                 W_p_E = x[..., :3] + braking_dist(x)[..., None] * v / smooth_norm
                 R = layout.get_W_R_Co(p)
                 rel = W_p_E - layout.get_W_p_Co(p)
-                return (rel[..., None, :] @ R)[..., 0, :] + _const(end_off, x)
+                return (rel[..., None, :] @ R)[..., 0, :] + kept(end_off, x)
 
             eval_rows.append(("braking_dist", lambda x, u, p, net: braking_dist(x)))
             eval_rows.append(("rec_feas_margin",
@@ -356,7 +353,7 @@ def build_ocp(cfg, sdf: torch.nn.Module = None, sdf_max_df: float = 1.0,
             end_bounds = [(-hfov_lim, hfov_lim, *hard)] + (
                 [(-vfov_lim, vfov_lim, *hard)] if vfov_on else [])
             h_blocks_term.append((lambda x, p, net: fov_rows(
-                braking_endpoint(x, p) + _const(fov_offset, x), p, hfov=True), end_bounds))
+                braking_endpoint(x, p) + kept(fov_offset, x), p, hfov=True), end_bounds))
 
             # stability terminal ingredients
             if fl.stability:

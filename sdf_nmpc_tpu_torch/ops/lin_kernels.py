@@ -75,7 +75,7 @@ def _lin_y_sens_cuda(model, layout, X, U, dt, P, yref):
         if (nx, nu, ny) != (10, 4, 11):
             raise ValueError(f"lin_y_sens kernel is built for (nx, nu, ny) = (10, 4, 11), got "
                              f"{(nx, nu, ny)}")
-        qd = P[:, list(layout.q_d)].contiguous()
+        qd = layout.get_q_d(P).contiguous()
         _lib.require_cuda_f32("lin_y_sens", X, U, dt, qd, yref)
         for name, t, shape in (("U", U, (M, nu)), ("dt", dt, (M,)), ("yref", yref, (M, ny))):
             _lib.require_shape(f"lin_y_sens {name}", t, shape)

@@ -41,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from ..nn.embeddings import PositionEmbedding
+from ..utils.device_consts import kept
 from . import _lib
 
 MODES = ("f32", "f32x3", "bf16", "mixed")
@@ -80,8 +81,7 @@ def embed_with_tangents(embed_fn, pos):
         return pos, eye
     if not isinstance(embed_fn, PositionEmbedding):
         raise TypeError(f"unsupported embedding {type(embed_fn).__name__}")
-    dirs = torch.as_tensor(embed_fn.dirs, dtype=pos.dtype, device=pos.device)  # (3, nd)
-    freqs = torch.as_tensor(embed_fn.freq_bands, dtype=pos.dtype, device=pos.device)
+    dirs, freqs = kept(embed_fn.dirs, pos), kept(embed_fn.freq_bands, pos)  # (3, nd), (nf,)
     proj = pos @ dirs  # (P, nd)
     xb = (proj[..., None] * freqs).reshape(P, -1)  # (P, nd*nf)
     s, c = torch.sin(xb), torch.cos(xb)

@@ -4,14 +4,37 @@
 JAX package shares with the reference.  W_R_Co is stored row-major, so
 ``reshape(3, 3)`` is direct: no CasADi-style transpose.
 
-The getters take p with any leading batch axes, ``(..., np_total)``.
+The getters take p with any leading batch axes, ``(..., np_total)``.  An
+index run that is contiguous, as every run of the layout above, is read as a
+basic slice (a view: no copy, no launch); another run is gathered with an
+index tensor kept on p's device (``utils/device_consts.py``).  Neither copies
+a host value to the card, so neither waits for the work queued there.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
+import torch
+
+from .utils.device_consts import kept
+
+
+@functools.cache
+def _as_slice(idx: tuple):
+    """``slice(a, b)`` when idx is the run a, a+1, ..., b-1, else None."""
+    a = idx[0]
+    return slice(a, a + len(idx)) if idx == tuple(range(a, a + len(idx))) else None
+
+
+def _take(p, idx: tuple):
+    """``p[..., list(idx)]``, without a host-to-device copy of idx."""
+    run = _as_slice(idx)
+    if run is not None:
+        return p[..., run]
+    return torch.index_select(p, -1, kept(idx, p, torch.long))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,14 +69,14 @@ class ParamLayout:
         return p[..., self.flag]
 
     def get_W_p_Co(self, p):
-        return p[..., list(self.W_p_Co)]
+        return _take(p, self.W_p_Co)
 
     def get_W_R_Co(self, p):
         """(..., 3, 3) camera-to-world rotation; stored row-major in p."""
-        return p[..., list(self.W_R_Co)].reshape(p.shape[:-1] + (3, 3))
+        return _take(p, self.W_R_Co).reshape(p.shape[:-1] + (3, 3))
 
     def get_q_d(self, p):
-        return p[..., list(self.q_d)]
+        return _take(p, self.q_d)
 
     def get_latent(self, p):
         return p[..., self.latent_start:]

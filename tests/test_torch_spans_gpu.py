@@ -9,7 +9,9 @@ name is a device event (the spans are FUNCTION-scope ranges, which Kineto
 does not mirror onto the device's timeline), and the ``nmpc.kernel.*``
 spans agree with ``_lib.launch_counts``.  The sync census: the source lines
 of the program that block the host on the card (``torch.cuda.
-set_sync_debug_mode("warn")``) in one steady step and one config-3 tick.
+set_sync_debug_mode("warn")``) in one steady step (none) and one config-3
+tick; one steady step under the debug mode's "error" setting, which builds
+no kept constant (``utils/device_consts.py``).
 """
 
 import traceback
@@ -28,29 +30,11 @@ B = 1024
 FRAMES = 256  # config 3's frames a tick; their latents tiled over the step's B
 KERNELS = {"lin_y_sens": 1, "sdf_fused_x3": 1, "condense": 1, "ip_phase": 2}
 # the synchronizing calls of the program in one steady config-4 step, each
-# "file::function: source line" with its count per step; a config-3 tick adds
-# the range map's copy.  A change that removes or adds one updates these and
-# PERF.md's census.
-STEP_SYNCS = {
-    "sdf_nmpc_tpu_torch/math.py::quat_invert: "
-    "sign = torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)": 2,
-    "sdf_nmpc_tpu_torch/nn/embeddings.py::__call__: "
-    "dirs = torch.as_tensor(self.dirs, dtype=x.dtype, device=x.device)": 2,
-    "sdf_nmpc_tpu_torch/nn/embeddings.py::__call__: "
-    "freqs = torch.as_tensor(self.freq_bands, dtype=x.dtype, device=x.device)": 2,
-    "sdf_nmpc_tpu_torch/ocp.py::_const: "
-    "return torch.as_tensor(a, dtype=like.dtype, device=like.device)": 8,
-    "sdf_nmpc_tpu_torch/ops/lin_kernels.py::_lin_y_sens_cuda: "
-    "qd = P[:, list(layout.q_d)].contiguous()": 1,
-    "sdf_nmpc_tpu_torch/ops/sdf_fused.py::embed_with_tangents: "
-    "dirs = torch.as_tensor(embed_fn.dirs, dtype=pos.dtype, device=pos.device)  # (3, nd)": 1,
-    "sdf_nmpc_tpu_torch/ops/sdf_fused.py::embed_with_tangents: "
-    "freqs = torch.as_tensor(embed_fn.freq_bands, dtype=pos.dtype, device=pos.device)": 1,
-    "sdf_nmpc_tpu_torch/params.py::get_W_R_Co: "
-    "return p[..., list(self.W_R_Co)].reshape(p.shape[:-1] + (3, 3))": 8,
-    "sdf_nmpc_tpu_torch/params.py::get_W_p_Co: return p[..., list(self.W_p_Co)]": 7,
-    "sdf_nmpc_tpu_torch/params.py::get_q_d: return p[..., list(self.q_d)]": 2,
-}
+# "file::function: source line" with its count per step: none, since every
+# index and constant the step reads is on the card before it runs; a
+# config-3 tick adds the range map's copy.  A change that adds one updates
+# these and PERF.md's census.
+STEP_SYNCS = {}
 TICK_SYNCS = {
     "sdf_nmpc_tpu_torch/perception/preprocessing.py::_map_like: "
     "return torch.as_tensor(depth2range_map(H, W, hfov, vfov), device=img.device)": 1,
@@ -147,10 +131,10 @@ def _census(fn):
 
 @pytest.mark.gpu
 def test_sync_census(steady_step, cuda_device):
-    """The synchronizing calls of one steady step and of one config-3 tick
+    """One steady step has no synchronizing call, and one config-3 tick
     (256 uint16 frames on the card through ``clip_distance``,
-    ``depth2range``, the trained encoder, the latents into p, the step) are
-    those of STEP_SYNCS and TICK_SYNCS, with their counts."""
+    ``depth2range``, the trained encoder, the latents into p, the step) has
+    those of TICK_SYNCS alone, with their counts."""
     from sdf_nmpc_tpu_torch.perception import clip_distance, depth2range
     from sdf_nmpc_tpu_torch.utils import accuracy
 
@@ -174,5 +158,26 @@ def test_sync_census(steady_step, cuda_device):
     tick = _census(tick)
     print("step:", step)
     print("tick:", tick)
-    assert step == STEP_SYNCS
+    assert step == STEP_SYNCS == {}
     assert tick == {**STEP_SYNCS, **TICK_SYNCS}
+
+
+@pytest.mark.gpu
+def test_steady_step_is_sync_free(steady_step):
+    """One steady step under ``set_sync_debug_mode("error")``, where any
+    synchronizing call raises, reads kept constants and builds none."""
+    from sdf_nmpc_tpu_torch.utils import device_consts
+
+    _, steady, state, inputs = steady_step
+    torch.cuda.synchronize()
+    device_consts.reset_kept_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = steady(state, inputs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = dict(device_consts.kept_counts)
+    print("kept:", counts)
+    assert counts["built"] == 0 and counts["reused"] > 0
+    assert bool(torch.isfinite(res.u0).all())
